@@ -5,11 +5,13 @@
 
 Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds every CUDA kernel of the port from ``wct_tpu_torch/csrc``, holds
-each against its plain PyTorch version at the main path's shapes, runs
-the five-level relu5_1 → relu1_1 cascade with
-``CascadeConfig(method="newton_schulz_pallas")`` at 512 px on the
-trained ``weights/bundle.npz`` through ``precompute_style`` and
-``stylize_microbatched``, checks the outputs, and runs the CLI once.
+each against its plain PyTorch version at the main path's shapes (and
+at awkward ones), runs the five-level relu5_1 → relu1_1 cascade at
+512 px on the trained ``weights/bundle.npz`` through
+``precompute_style`` and ``stylize_microbatched`` twice, unfused
+(``CascadeConfig(method="newton_schulz_pallas")``) and with
+``fuse_junction=True``, checks the outputs of each and one against the
+other, and runs the CLI once.
 
 Each phase prints one JSON line. The line before the last lists each
 kernel with its launches in the main path's run and its times; the
@@ -28,9 +30,10 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from wct_tpu_torch.models import cascade, decoder, vgg
-from wct_tpu_torch.ops import _build, sqrtm
+from wct_tpu_torch.ops import _build, junction, sqrtm
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import to_nchw
 from wct_tpu_torch.train import checkpoint
@@ -71,6 +74,33 @@ def ns_bound_ms(batch: int, c: int, iters: int, flops: float, bw: float) -> tupl
     nbytes = batch * c * c * 4 * 3  # read A, write both outputs
     t_ops, t_bytes = ops / flops * 1e3, nbytes / bw * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+KERNEL_WRAPPERS = {
+    "ns_sqrtm": sqrtm.ns_sqrtm_cuda,
+    "encoder_head": junction.encoder_head_cuda,
+    "junction": junction.junction_cuda,
+    "decoder_tail": junction.decoder_tail_cuda,
+}
+
+
+def reset_counts() -> None:
+    for fn in KERNEL_WRAPPERS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+
+
+def conv_bound_ms(ops: float, nbytes: float, flops: float, bw: float) -> tuple[float, str]:
+    t_ops, t_bytes = ops / flops * 1e3, nbytes / bw * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def rel_max(a, b) -> float:
+    """max |a − b| relative to the reference map's largest value."""
+    return float((a - b).abs().max() / b.abs().max())
 
 
 def rel_fro(a, b) -> float:
@@ -168,18 +198,19 @@ def phase_kernel(params, content, cfg, name):
 def phase_main(params, content, style, cfg):
     # The main path's run: style once, then two microbatches (the
     # second padded). Only this window's launches count.
-    sqrtm.ns_sqrtm_cuda.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cache = cascade.precompute_style(params["encoder"], style, cfg)
     out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = sqrtm.ns_sqrtm_cuda.launches
+    counts = read_counts()
+    launches = counts["ns_sqrtm"]
     n_levels = len(cfg.relu_targets)
     n_chunks = -(-N_CONTENT // MICROBATCH)
-    check(launches == n_levels * (1 + n_chunks),
-          f"ns_sqrtm launched {launches} times, expected {n_levels * (1 + n_chunks)}")
+    check(counts == {"ns_sqrtm": n_levels * (1 + n_chunks), "encoder_head": 0, "junction": 0,
+                     "decoder_tail": 0}, f"unfused main path launched {counts}")
     check(tuple(out.shape) == (N_CONTENT, SIZE, SIZE, 3), f"output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite output")
     check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output outside [0, 1]")
@@ -201,7 +232,7 @@ def phase_main(params, content, style, cfg):
     check(q99 <= 5e-3, f"kernel cascade vs plain cascade q99 {q99:.2e} > 5e-3")
 
     batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
-    runs = 5
+    runs = 3
     ms_frame = cuda_ms(lambda: cascade.stylize(params, batch, cache, ALPHA, cfg), runs) / MICROBATCH
     ms_frame_plain = cuda_ms(
         lambda: cascade.stylize(params, batch, plain_cache, ALPHA, plain_cfg), runs
@@ -230,7 +261,231 @@ def phase_main(params, content, style, cfg):
           "ms_per_frame_b4_plain_ns": ms_frame_plain, "precompute_style_ms": ms_style,
           "stages_b4_ms": stages,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
-    return launches
+    return launches, out
+
+
+# Kernel against plain: f32 sums of up to 576 terms taken in another order,
+# through up to four convs with conv0's O(255) weights in the third. Limit on
+# max |Δ| relative to the map's largest value (measured ≤ 2e-5).
+JUNCTION_LIMIT = 1e-4
+# Fused cascade against unfused cascade of the same run: the limits the CPU
+# tests hold the two routes to (five levels of whitening amplify the
+# kernels' rounding differences ≈100×).
+FUSED_Q99_LIMIT, FUSED_MAX_LIMIT = 5e-3, 3e-2
+
+
+def head_weights(params):
+    enc = params["encoder"]
+    we1, be1 = junction.fold_conv0(enc["conv0"]["w"], enc["conv0"]["b"],
+                                   enc["conv1_1"]["w"], enc["conv1_1"]["b"])
+    return we1, be1, enc["conv1_2"]["w"], enc["conv1_2"]["b"]
+
+
+def main_path_inputs(params, content, cache, cfg):
+    """What one microbatch hands each junction kernel on the fused main
+    path: the content batch (head), the decoder states ``d`` of the
+    trained relu5_1/4_1/3_1 levels (junction), and the relu1_1 features
+    with their folded per-image weights (tail). Teacher-forced through
+    the unfused cascade."""
+    ds = {}
+    with torch.no_grad():
+        x = to_nchw(torch.as_tensor(content[:MICROBATCH], device=DEV))
+        img = x
+        for level in cfg.relu_targets[:-1]:
+            feats = vgg.encode_multi_nchw(params["encoder"], x, (level,))[level]
+            tr = cascade._transform_level(feats, level, cache[level], ALPHA, cfg)
+            dec_p = params["decoders"][level]
+            if level != "relu2_1":
+                ds[level] = (decoder.decode_partial_nchw(dec_p, tr, level).contiguous(),
+                             decoder.tail_weights(dec_p, level))
+            x = decoder.decode_nchw(dec_p, tr, level)
+        f = vgg.encode_multi_nchw(params["encoder"], x, ("relu1_1",))["relu1_1"].contiguous()
+        m, bias = wct_ops.wct_transform_cn(f.flatten(2), cache["relu1_1"].stats, ALPHA,
+                                           method=cfg.method)
+        conv = params["decoders"]["relu1_1"]["dec_conv1_1"]
+        wf, bf = decoder.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
+    return img.contiguous(), ds, (f, wf, bf)
+
+
+def phase_junction_kernels(params, content, cache, cfg, name):
+    """encoder_head, junction and decoder_tail against their plain
+    versions, at the main path's shapes and at awkward ones."""
+    flops, bw = peaks(name)
+    hw = head_weights(params)
+    img, ds, (f, wf, bf) = main_path_inputs(params, content, cache, cfg)
+    gen = torch.Generator().manual_seed(SEED + 2)
+    rand = lambda *shape: torch.rand(*shape, generator=gen).to(DEV)  # noqa: E731
+    rows = []
+
+    def run(kernel_name, case, kernel, plain, ops, nbytes, shape, main, library=None):
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()) and float(ref.abs().max()) > 0, f"{kernel_name} {case}: degenerate output")
+        err = rel_max(got, ref)
+        again = kernel()
+        row = {"phase": "kernel", "kernel": kernel_name, "case": case, "shape": list(shape),
+               "main_path": main, "rel_max_err": err, "max_abs_err": float((got - ref).abs().max()),
+               "bitwise_repeatable": bool(torch.equal(got, again))}
+        bound, by = conv_bound_ms(ops, nbytes, flops, bw)
+        n = 10 if main else 3  # the main path's shapes are the ones PERF.md keeps
+        row.update(ms=cuda_ms(kernel, n), plain_ms=cuda_ms(plain, n // 2 + 1), bound_ms=bound,
+                   bound_by=by, library_ms=cuda_ms(library, 5) if library else None)
+        emit(row)
+        check(err <= JUNCTION_LIMIT, f"{kernel_name} vs plain at {case}: {err:.2e} > {JUNCTION_LIMIT}")
+        check(row["bitwise_repeatable"], f"{kernel_name} at {case}: two calls differ")
+        rows.append(row)
+
+    def head_case(case, x, main=False):
+        b, _, h, w = x.shape
+        run("encoder_head", case, lambda: junction.encoder_head_cuda(x, *hw),
+            lambda: junction._encoder_head_plain(x, *hw),
+            b * 2 * h * w * 9 * (3 * 64 + 64 * 64), b * h * w * (3 + 16) * 4, x.shape, main)
+
+    def junction_case(case, d, tw, deep, clip, main=False):
+        b, _, h, w = d.shape
+        args = (d, *tw, *hw, deep, clip)
+        px = 4 * h * w
+        ops = b * 2 * px * 9 * (64 * 64 + 64 * 3 + 3 * 64 + (64 * 64 if deep else 0))
+        nbytes = b * 64 * 4 * (h * w + (h * w if deep else px))
+        run("junction", case, lambda: junction.junction_cuda(*args),
+            lambda: junction._junction_plain(*args), ops, nbytes, d.shape, main)
+
+    def tail_case(case, x, w, b, clip, main=False):
+        bsz, c, h, wd = x.shape
+        library = None
+        if main:  # the one PyTorch call that computes it: a grouped conv on the padded map
+            xp = F.pad(x, (1, 1, 1, 1), mode="reflect").reshape(1, bsz * c, h + 2, wd + 2)
+            wg, bg = w.reshape(bsz * 3, c, 3, 3).contiguous(), b.reshape(-1).contiguous()
+            library = lambda: F.conv2d(xp, wg, bg, groups=bsz)  # noqa: E731
+        run("decoder_tail", case, lambda: junction.decoder_tail_cuda(x, w, b, clip),
+            lambda: junction._decoder_tail_plain(x, w, b, clip),
+            bsz * 2 * h * wd * 9 * 64 * 3, bsz * h * wd * (64 + 3) * 4, x.shape, main, library)
+
+    head_case("main_b4_512", img, main=True)
+    for level, (d, tw) in ds.items():
+        junction_case(level, d, tw, True, False, main=True)
+    tail_case("main_b4_512", f, wf, bf, False, main=True)
+    d3, tw = ds["relu3_1"]
+    # The shallow variant at the main path's size, though the cascade never calls it.
+    junction_case("relu3_1_shallow", d3, tw, False, False)
+    for b, h, w in ((1, 16, 16), (2, 48, 32), (3, 64, 16), (1, 512, 512)):
+        label = f"b{b}_{h}x{w}"
+        head_case(label, rand(b, 3, h, w))
+        for deep in (True, False):
+            for clip in (False, True):  # ×20: the rgb stage leaves [0, 1], so the clip acts
+                junction_case(f"{label}_{'deep' if deep else 'shallow'}{'_clip' if clip else ''}",
+                              rand(b, 64, h // 2, w // 2) * 20, tw, deep, clip)
+        for clip in (False, True):
+            tail_case(f"{label}{'_clip' if clip else ''}", rand(b, 64, h, w),
+                      (rand(b, 3, 64, 3, 3) - 0.5) * 0.2, rand(b, 3), clip)
+
+    def line(kernel_name):
+        mine = [r for r in rows if r["kernel"] == kernel_name]
+        main_rows = [r for r in mine if r["main_path"]]
+        lib = [r["library_ms"] for r in main_rows]
+        return {
+            "max_abs_err": max(r["max_abs_err"] for r in main_rows),
+            "rel_max_err": max(r["rel_max_err"] for r in mine),
+            "ms": sum(r["ms"] for r in main_rows),
+            "plain_ms": sum(r["plain_ms"] for r in main_rows),
+            "bound_ms": sum(r["bound_ms"] for r in main_rows),
+            "bound_by": main_rows[0]["bound_by"],
+            "library_ms": None if None in lib else sum(lib),
+        }
+
+    return {k: line(k) for k in ("encoder_head", "junction", "decoder_tail")}
+
+
+def phase_main_fused(params, content, style, cfg, out_unfused, cache_unfused, cfg_unfused):
+    """The fuse_junction cascade through the same entry points."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_chunks = -(-N_CONTENT // MICROBATCH)
+    expected = {"ns_sqrtm": 5 * (1 + n_chunks), "encoder_head": n_chunks,
+                "junction": 3 * n_chunks, "decoder_tail": n_chunks}
+    check(counts == expected, f"fused main path launched {counts}, expected {expected}")
+    check(tuple(out.shape) == (N_CONTENT, SIZE, SIZE, 3), f"output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite output")
+    check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output outside [0, 1]")
+
+    out_a0 = cascade.stylize_microbatched(params, content[:MICROBATCH], cache, 0.0, cfg, MICROBATCH)
+    out_a1 = cascade.stylize_microbatched(params, content[:MICROBATCH], cache, 1.0, cfg, MICROBATCH)
+    a_diff = float((out_a0 - out_a1).abs().mean())
+    check(a_diff > 1e-3, f"alpha=0 and alpha=1 outputs barely differ ({a_diff:.2e})")
+    a0_err = float((out_a0 - torch.as_tensor(content[:MICROBATCH], device=DEV)).abs().mean())
+
+    single = cascade.stylize_microbatched(params, content[:1], cache, ALPHA, cfg, MICROBATCH)
+    check(torch.equal(single[0], out[0]), "fused output depends on the submitted batch size")
+
+    d = (out - out_unfused).abs().flatten().double().cpu().numpy()
+    q99, dmax = float(np.quantile(d, 0.99)), float(d.max())
+    check(q99 <= FUSED_Q99_LIMIT and dmax <= FUSED_MAX_LIMIT,
+          f"fused vs unfused cascade q99 {q99:.2e}, max {dmax:.2e} > {FUSED_Q99_LIMIT}, {FUSED_MAX_LIMIT}")
+
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    runs = 5
+    fused = lambda: cascade.stylize(params, batch, cache, ALPHA, cfg)  # noqa: E731
+    unfused = lambda: cascade.stylize(params, batch, cache_unfused, ALPHA, cfg_unfused)  # noqa: E731
+    # In turns on one card: unfused, fused, fused, unfused.
+    t = [cuda_ms(fn, runs) / MICROBATCH for fn in (unfused, fused, fused, unfused)]
+
+    # One microbatch's stages as the fused cascade runs them.
+    stages = {}
+    enc = params["encoder"]
+    head_args = tuple(enc[n][k] for n in ("conv0", "conv1_1", "conv1_2") for k in ("w", "b"))
+    with torch.no_grad():
+        x, kind = to_nchw(batch), "img"
+        for level in cfg.relu_targets:
+            dec_p = params["decoders"][level]
+            if level == "relu1_1":
+                encode = lambda: vgg.encode_multi_nchw(enc, x, (level,))[level]  # noqa: E731
+            elif kind == "img":
+                encode = lambda: vgg.encode_from_pool1_nchw(  # noqa: E731
+                    enc, junction.encoder_head_nchw(x, *head_args), level)
+            else:
+                encode = lambda: vgg.encode_from_pool1_nchw(enc, x, level)  # noqa: E731
+            feats = encode()
+            if level == "relu1_1":
+                conv = dec_p["dec_conv1_1"]
+
+                def wct():
+                    m, bias = wct_ops.wct_transform_cn(feats.flatten(2), cache[level].stats,
+                                                       ALPHA, method=cfg.method)
+                    return decoder.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
+
+                wf, bf = wct()
+                dec = lambda: junction.decoder_tail_nchw(feats, wf, bf)  # noqa: E731
+                kind = "img"
+            else:
+                wct = lambda: cascade._transform_level(feats, level, cache[level], ALPHA, cfg)  # noqa: E731
+                tr = wct()
+                if level == "relu2_1":
+                    dec = lambda: decoder.decode_nchw(dec_p, tr, level)  # noqa: E731
+                    kind = "img"
+                else:
+                    dec = lambda: junction.junction_nchw(  # noqa: E731
+                        decoder.decode_partial_nchw(dec_p, tr, level),
+                        *decoder.tail_weights(dec_p, level), *head_args)
+                    kind = "pooled"
+            stages[level] = {"encode_ms": cuda_ms(encode, 3), "wct_ms": cuda_ms(wct, 3),
+                             "decode_ms": cuda_ms(dec, 3)}
+            x = dec()
+    emit({"phase": "main_fused",
+          "config": "CascadeConfig(method='newton_schulz_pallas', fuse_junction=True)",
+          "size": SIZE, "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA,
+          "launches": counts, "first_run_wall_s": wall, "alpha0_vs_alpha1_mean_abs": a_diff,
+          "alpha0_vs_content_mean_abs": a0_err, "batch1_vs_batch6_bitwise_equal": True,
+          "vs_unfused_q99": q99, "vs_unfused_max": dmax,
+          "ms_per_frame_b4": (t[1] + t[2]) / 2, "ms_per_frame_b4_unfused": (t[0] + t[3]) / 2,
+          "ms_per_frame_b4_turns_unfused_fused_fused_unfused": t,
+          "stages_b4_ms": stages, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return counts
 
 
 def phase_cli():
@@ -270,15 +525,27 @@ def main() -> int:
     content = rng.random((N_CONTENT, SIZE, SIZE, 3)).astype(np.float32)
     style = rng.random((SIZE, SIZE, 3)).astype(np.float32)
     cfg = cascade.CascadeConfig(method="newton_schulz_pallas")
-    ns = phase_kernel(params, content, cfg, name)
-    launches = phase_main(params, content, style, cfg)
+    cfg_fused = cascade.CascadeConfig(method="newton_schulz_pallas", fuse_junction=True)
+    lines = {"ns_sqrtm": phase_kernel(params, content, cfg, name)}
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    lines.update(phase_junction_kernels(params, content, cache, cfg, name))
+    _, out_unfused = phase_main(params, content, style, cfg)
+    counts = phase_main_fused(params, content, style, cfg_fused, out_unfused, cache, cfg)
     phase_cli()
+    meta = {
+        "ns_sqrtm": ("wct_tpu_torch/csrc/ns_sqrtm.cu", "wct_tpu/ops/sqrtm.py:169"),
+        "encoder_head": ("wct_tpu_torch/csrc/encoder_head.cu", "wct_tpu/ops/junction_pallas.py:368"),
+        "decoder_tail": ("wct_tpu_torch/csrc/decoder_tail.cu", "wct_tpu/ops/junction_pallas.py:467"),
+        "junction": ("wct_tpu_torch/csrc/junction.cu", "wct_tpu/ops/junction_pallas.py:530"),
+    }
+    # ms, plain_ms and bound_ms are one microbatch's calls (5 ns_sqrtm, 1
+    # head, 3 junctions, 1 tail); launches are the fused main path's run.
     print(json.dumps({"kernels": [{
-        "name": "ns_sqrtm", "route": "cuda", "source": "wct_tpu_torch/csrc/ns_sqrtm.cu",
-        "replaces": "wct_tpu/ops/sqrtm.py:169", "launches": launches,
-        "max_abs_err": ns["max_abs_err"], "ms": ns["ms"], "plain_ms": ns["plain_ms"],
-        "bound_ms": ns["bound_ms"], "bound_by": ns["bound_by"], "library_ms": None,
-    }]}), flush=True)
+        "name": k, "route": "cuda", "source": src, "replaces": repl, "launches": counts[k],
+        "max_abs_err": lines[k]["max_abs_err"], "ms": lines[k]["ms"],
+        "plain_ms": lines[k]["plain_ms"], "bound_ms": lines[k]["bound_ms"],
+        "bound_by": lines[k]["bound_by"], "library_ms": lines[k].get("library_ms"),
+    } for k, (src, repl) in meta.items()]}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)
     return 0

@@ -161,7 +161,7 @@ def test_config_same_value_errors_as_reference(kw):
 
 @pytest.mark.parametrize(
     "kw",
-    [dict(fuse_junction=True), dict(pack2_junction=True), dict(fold_transform=True),
+    [dict(pack2_junction=True), dict(fold_transform=True),
      dict(ring_conv=True), dict(transform="adain"), dict(swap5=True), dict(wct_groups=2),
      dict(soft_trunc=True), dict(rel_trunc=1e-3), dict(compute_dtype="bfloat16"),
      dict(method="newton_schulz_fast"), dict(conv_precision="high")],
@@ -171,3 +171,10 @@ def test_config_unported_options_raise_not_implemented(kw):
     jcascade.CascadeConfig(**kw)  # legal in the reference
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         tcascade.CascadeConfig(**kw)
+
+
+def test_config_fuse_junction_is_ported():
+    """Legal in both packages; the fused cascade itself is held against
+    the reference in tests/test_torch_cascade_fused.py."""
+    assert jcascade.CascadeConfig(fuse_junction=True).fuse_junction
+    assert tcascade.CascadeConfig(fuse_junction=True).fuse_junction

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from wct_tpu_torch.ops import sqrtm
+from wct_tpu_torch.ops import junction, sqrtm
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +101,161 @@ def test_cascade_kernel_matches_plain_cascade(card):
         outs[method] = cascade.stylize_microbatched(params, content, cache, 0.6, cfg, 2)
     d = (outs["newton_schulz_pallas"] - outs["newton_schulz"]).abs()
     assert float(d.max()) <= 1e-3
+
+
+# ---- encoder_head, junction, decoder_tail (csrc/*.cu) against plain ----
+
+# f32 sums of up to 576 terms in another order through up to four convs,
+# conv0's O(255) weights in the third: max |Δ| ≤ 1e-4 of the map's max.
+JUNCTION_LIMIT = 1e-4
+SHAPES = [(1, 16, 16), (2, 48, 32), (3, 64, 16), (1, 16, 80), (2, 96, 144)]
+
+
+@pytest.fixture(scope="module")
+def weights():
+    """Random conv weights at the trained model's scales, OIHW, on the CPU."""
+    rng = np.random.default_rng(11)
+
+    def conv(co, ci, scale=1.0):
+        w = rng.standard_normal((co, ci, 3, 3)) * np.sqrt(2.0 / (9 * ci)) * scale
+        return torch.from_numpy(w.astype(np.float32)), torch.from_numpy(
+            (rng.standard_normal(co) * 0.1).astype(np.float32))
+
+    return {"d1": conv(64, 64), "d2": conv(3, 64), "e1": conv(64, 3, 255.0), "e2": conv(64, 64)}
+
+
+def _on(card, *pairs):
+    return [t.to(card) for pair in pairs for t in pair]
+
+
+def _rel_max(a, b):
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _rand(seed, *shape):
+    return torch.from_numpy(np.random.default_rng(seed).random(shape).astype(np.float32))
+
+
+@pytest.mark.parametrize("b,h,w", SHAPES)
+def test_encoder_head_kernel_matches_plain(card, weights, b, h, w):
+    x = _rand(h + w, b, 3, h, w).to(card)
+    args = _on(card, weights["e1"], weights["e2"])
+    before = junction.encoder_head_cuda.launches
+    got = junction.encoder_head_cuda(x, *args)
+    assert junction.encoder_head_cuda.launches == before + 1
+    ref = junction._encoder_head_plain(x, *args)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (b, 64, h // 2, w // 2)
+    assert _rel_max(got, ref) <= JUNCTION_LIMIT
+    assert torch.equal(got, junction.encoder_head_cuda(x, *args))
+
+
+@pytest.mark.parametrize("clip", [False, True], ids=["noclip", "clip"])
+@pytest.mark.parametrize("deep", [True, False], ids=["deep", "shallow"])
+@pytest.mark.parametrize("b,h,w", SHAPES)
+def test_junction_kernel_matches_plain(card, weights, b, h, w, deep, clip):
+    d = (_rand(h * w, b, 64, h // 2, w // 2) * 4).to(card)
+    args = _on(card, weights["d1"], weights["d2"], weights["e1"], weights["e2"])
+    before = junction.junction_cuda.launches
+    got = junction.junction_cuda(d, *args, deep, clip)
+    assert junction.junction_cuda.launches == before + 1
+    ref = junction._junction_plain(d, *args, deep, clip)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == ((b, 64, h // 2, w // 2) if deep else (b, 64, h, w))
+    assert _rel_max(got, ref) <= JUNCTION_LIMIT
+    assert torch.equal(got, junction.junction_cuda(d, *args, deep, clip))
+    if clip:  # the clip acts on this input
+        assert not torch.equal(got, junction.junction_cuda(d, *args, deep, False))
+
+
+@pytest.mark.parametrize("clip", [False, True], ids=["noclip", "clip"])
+@pytest.mark.parametrize("b,h,w", SHAPES)
+def test_decoder_tail_kernel_matches_plain(card, b, h, w, clip):
+    f = _rand(7 * h + w, b, 64, h, w).to(card)
+    wt = ((_rand(1, b, 3, 64, 3, 3) - 0.5) * 0.2).to(card)
+    bias = _rand(2, b, 3).to(card)
+    before = junction.decoder_tail_cuda.launches
+    got = junction.decoder_tail_cuda(f, wt, bias, clip)
+    assert junction.decoder_tail_cuda.launches == before + 1
+    ref = junction._decoder_tail_plain(f, wt, bias, clip)
+    torch.cuda.synchronize()
+    assert tuple(got.shape) == (b, 3, h, w)
+    assert _rel_max(got, ref) <= JUNCTION_LIMIT
+    assert torch.equal(got, junction.decoder_tail_cuda(f, wt, bias, clip))
+    # per-image weights: image 1 alone gives the same bits as in the batch
+    if b > 1:
+        alone = junction.decoder_tail_cuda(f[1:2].contiguous(), wt[1:2], bias[1:2], clip)
+        assert torch.equal(alone[0], got[1])
+
+
+def test_junction_kernels_independent_of_batch(card, weights):
+    args = _on(card, weights["d1"], weights["d2"], weights["e1"], weights["e2"])
+    d = (_rand(3, 5, 64, 24, 16) * 4).to(card)
+    full = junction.junction_cuda(d, *args)
+    assert torch.equal(junction.junction_cuda(d[3:4].contiguous(), *args)[0], full[3])
+    x = _rand(4, 5, 3, 32, 48).to(card)
+    full = junction.encoder_head_cuda(x, *args[4:])
+    assert torch.equal(junction.encoder_head_cuda(x[2:3].contiguous(), *args[4:])[0], full[2])
+
+
+@pytest.mark.parametrize(
+    "case", ["float64", "cpu", "rank3", "non_contiguous", "c_not_64", "h_not_16", "w_not_16",
+             "bad_weight"])
+@pytest.mark.parametrize("kernel", ["encoder_head", "junction", "decoder_tail"])
+def test_junction_kernels_reject_bad_input_on_card(card, weights, kernel, case):
+    c = 3 if kernel == "encoder_head" else 64
+    half = 2 if kernel == "junction" else 1  # junction takes the half-resolution map
+    x = torch.rand(2, c, 32 // half, 32 // half, device=card)
+    bad = {
+        "float64": lambda: x.double(),
+        "cpu": lambda: x.cpu(),
+        "rank3": lambda: x[0],
+        "non_contiguous": lambda: x.transpose(2, 3),
+        "c_not_64": lambda: torch.rand(2, c + 1, 32 // half, 32 // half, device=card),
+        "h_not_16": lambda: torch.rand(2, c, 24 // half, 32 // half, device=card),
+        "w_not_16": lambda: torch.rand(2, c, 32 // half, 40 // half, device=card),
+        "bad_weight": lambda: x,
+    }[case]()
+    d1, d2, e1, e2 = (_on(card, weights[k]) for k in ("d1", "d2", "e1", "e2"))
+    if case == "bad_weight":
+        e1 = [e1[0][:, :, :2], e1[1]]
+        d2 = [d2[0][:2], d2[1]]
+    call = {
+        "encoder_head": lambda: junction.encoder_head_cuda(bad, *e1, *e2),
+        "junction": lambda: junction.junction_cuda(bad, *d1, *d2, *e1, *e2),
+        "decoder_tail": lambda: junction.decoder_tail_cuda(
+            bad, torch.rand(2 if case != "bad_weight" else 1, 3, 64, 3, 3, device=card),
+            torch.rand(2, 3, device=card)),
+    }[kernel]
+    before = getattr(junction, f"{kernel}_cuda").launches
+    with pytest.raises((TypeError, ValueError)):
+        call()
+    assert getattr(junction, f"{kernel}_cuda").launches == before
+
+
+def test_fused_cascade_matches_unfused_cascade(card):
+    """Trained bundle, 64 px, five levels: the fused route launches 1 head,
+    3 junctions, 1 tail per chunk and agrees with the unfused route within
+    the bounds the CPU tests hold the two routes to."""
+    from pathlib import Path
+
+    from wct_tpu_torch.models import cascade
+    from wct_tpu_torch.train import checkpoint
+
+    bundle = Path(__file__).resolve().parent.parent / "weights" / "bundle.npz"
+    params = checkpoint.params_from_numpy(checkpoint.load_pytree(bundle), card)
+    rng = np.random.default_rng(0)
+    content = rng.random((3, 64, 64, 3)).astype(np.float32)
+    style = rng.random((64, 64, 3)).astype(np.float32)
+    outs = {}
+    wrappers = (junction.encoder_head_cuda, junction.junction_cuda, junction.decoder_tail_cuda)
+    for fuse in (False, True):
+        cfg = cascade.CascadeConfig(method="newton_schulz_pallas", fuse_junction=fuse)
+        cache = cascade.precompute_style(params["encoder"], style, cfg)
+        before = [f.launches for f in wrappers]
+        outs[fuse] = cascade.stylize_microbatched(params, content, cache, 0.6, cfg, 2)
+        delta = [f.launches - n for f, n in zip(wrappers, before)]
+        assert delta == ([2, 6, 2] if fuse else [0, 0, 0])
+    d = (outs[True] - outs[False]).abs().flatten()
+    assert float(torch.quantile(d, 0.99)) <= 5e-3
+    assert float(d.max()) <= 3e-2

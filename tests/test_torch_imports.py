@@ -34,7 +34,7 @@ def test_port_imports_without_jax_loaded():
     code = (
         "import sys\n"
         "import wct_tpu_torch.models, wct_tpu_torch.cli.stylize, wct_tpu_torch.ops._build\n"
-        "import wct_tpu_torch.tools.profile_convs\n"
+        "import wct_tpu_torch.tools.profile_convs, wct_tpu_torch.ops.junction\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'wct_tpu')]\n"
         "assert not bad, bad\n"
     )

@@ -1,0 +1,184 @@
+// Shared device code of the junction kernels (junction.cu, encoder_head.cu,
+// decoder_tail.cu): 3x3 reflect convolutions over image tiles held in shared
+// memory, fp32 FFMA, NCHW maps.
+//
+// A block owns one 16x16 tile of the full-resolution image and runs the
+// whole chain of convolutions on it, each intermediate living in shared
+// memory with the halo the later stages need (stage k rows/cols of halo:
+// e1 1, rgb 2, m 3, u 4). Every conv of the chain reflect-pads ITS OWN input,
+// and a conv computed on an extended domain is not the reflection of its
+// output. So each stage computes its whole haloed region, and on tiles that
+// touch the image border `fix_halo` then overwrites the out-of-image rows and
+// columns with the in-tile reflected ones (row -k takes row +k) before the
+// next stage reads them. Only distance-1 positions are ever read by an
+// in-image output; the rest of the halo is overwritten all the same, so no
+// stage reads a value that was never written.
+//
+// The 64-output-channel convs share one inner loop, `conv_accumulate`: a warp
+// owns 8 output channels (its weight reads are warp-uniform shared-memory
+// broadcasts), a lane owns NT tiles of 2x2 pixels, so one weight fetch feeds
+// 4*NT pixels and one 2x4 input patch feeds 3 taps. Weights are stored
+// [ci][tap][co]. The summation order of every output is fixed (ci, then dy,
+// then dx), there are no atomics, and nothing depends on the batch size: an
+// image's result is the same bits alone and in any batch.
+
+#pragma once
+#include <cuda_runtime.h>
+
+namespace wct {
+
+constexpr int kThreads = 256;  // 8 warps; warp w owns output channels 8w..8w+7
+constexpr int kT = 16;         // tile edge at full resolution
+constexpr int kCh = 64;
+constexpr int kChunk = 8;                // input channels per staged weight chunk
+constexpr int kTapStride = 9 * kCh;      // floats per input channel in [ci][tap][co]
+constexpr int kRgbS = kT + 4;            // rgb region edge (halo 2)
+constexpr int kE1S = kT + 2;             // e1 region edge (halo 1)
+constexpr int kRgbFloats = 3 * kRgbS * kRgbS;
+constexpr int kE1Floats = kCh * kE1S * kE1S;
+constexpr int kWsFloats = kChunk * kTapStride;
+
+__device__ __forceinline__ int reflect(int g, int n) {
+  return g < 0 ? -g : (g >= n ? 2 * (n - 1) - g : g);
+}
+
+// n floats (a multiple of 4, both pointers 16-byte aligned), whole block.
+__device__ __forceinline__ void copy4(float* dst, const float* __restrict__ src, int n) {
+  const float4* s = reinterpret_cast<const float4*>(src);
+  float4* d = reinterpret_cast<float4*>(dst);
+  for (int i = threadIdx.x; i < n / 4; i += kThreads) d[i] = __ldg(s + i);
+}
+
+// acc[k][r][p][c] += sum over ci < nci, dy, dx of
+//   in[ci][base[k] + (r + dy) * pitch + p + dx] * w[ci][dy * 3 + dx][c]
+// `in` and `w` are shared memory; `w` already points at the warp's first
+// output channel. plane, pitch and base[] are even (8-byte aligned float2).
+template <int NT>
+__device__ __forceinline__ void conv_accumulate(
+    const float* __restrict__ in, int plane, int pitch, int nci,
+    const float* __restrict__ w, const int (&base)[NT], float (&acc)[NT][2][2][8]) {
+  for (int ci = 0; ci < nci; ++ci) {
+    const float* ip = in + ci * plane;
+    const float* wp = w + ci * kTapStride;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy) {
+      float wr[3][8];
+#pragma unroll
+      for (int dx = 0; dx < 3; ++dx) {
+        const float4 a = *reinterpret_cast<const float4*>(wp + (dy * 3 + dx) * kCh);
+        const float4 b = *reinterpret_cast<const float4*>(wp + (dy * 3 + dx) * kCh + 4);
+        wr[dx][0] = a.x; wr[dx][1] = a.y; wr[dx][2] = a.z; wr[dx][3] = a.w;
+        wr[dx][4] = b.x; wr[dx][5] = b.y; wr[dx][6] = b.z; wr[dx][7] = b.w;
+      }
+#pragma unroll
+      for (int k = 0; k < NT; ++k) {
+        const float* r0 = ip + base[k] + dy * pitch;
+        float x[2][4];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 p = *reinterpret_cast<const float2*>(r0 + r * pitch);
+          const float2 q = *reinterpret_cast<const float2*>(r0 + r * pitch + 2);
+          x[r][0] = p.x; x[r][1] = p.y; x[r][2] = q.x; x[r][3] = q.y;
+        }
+#pragma unroll
+        for (int dx = 0; dx < 3; ++dx)
+#pragma unroll
+          for (int r = 0; r < 2; ++r)
+#pragma unroll
+            for (int p = 0; p < 2; ++p)
+#pragma unroll
+              for (int c = 0; c < 8; ++c)
+                acc[k][r][p][c] = fmaf(x[r][p + dx], wr[dx][c], acc[k][r][p][c]);
+      }
+    }
+  }
+}
+
+// buf [nch][S][S] covers image rows oy..oy+S-1 and columns ox..ox+S-1. Rows
+// and columns outside the image take the value at their reflection (which lies
+// inside both the image and the region). Rows first, then columns, so corners
+// come out as the reflection in both. Starts and ends with a barrier.
+__device__ __forceinline__ void fix_halo(float* buf, int nch, int S, int oy, int ox,
+                                         int H, int W) {
+  __syncthreads();
+  if (oy < 0 || oy + S > H) {
+    for (int i = threadIdx.x; i < nch * S * S; i += kThreads) {
+      const int gy = oy + (i / S) % S;
+      if (gy < 0 || gy >= H) buf[i] = buf[i + (reflect(gy, H) - gy) * S];
+    }
+    __syncthreads();
+  }
+  if (ox < 0 || ox + S > W) {
+    for (int i = threadIdx.x; i < nch * S * S; i += kThreads) {
+      const int gx = ox + i % S;
+      if (gx < 0 || gx >= W) buf[i] = buf[i + reflect(gx, W) - gx];
+    }
+    __syncthreads();
+  }
+}
+
+// rgb [3][20][20] (halo fixed) -> e1 [64][18][18] = relu(conv0∘conv1_1), the
+// folded 3->64 conv. ws holds its weights [3][9][64]; be1 is global.
+__device__ __forceinline__ void stage_e1(const float* rgb, float* e1, const float* ws,
+                                         const float* __restrict__ be1) {
+  const int lane = threadIdx.x & 31, co0 = (threadIdx.x >> 5) * 8;
+  constexpr int kTiles = kE1S / 2;
+  for (int t0 = 0; t0 < kTiles * kTiles; t0 += 32) {
+    const int t = t0 + lane;
+    const bool ok = t < kTiles * kTiles;
+    const int ty = ok ? t / kTiles : 0, tx = ok ? t % kTiles : 0;
+    const int base[1] = {2 * ty * kRgbS + 2 * tx};
+    float acc[1][2][2][8] = {};
+    conv_accumulate<1>(rgb, kRgbS * kRgbS, kRgbS, 3, ws + co0, base, acc);
+    if (!ok) continue;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float b = __ldg(be1 + co0 + c);
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int p = 0; p < 2; ++p)
+          e1[(co0 + c) * kE1S * kE1S + (2 * ty + r) * kE1S + 2 * tx + p] =
+              fmaxf(acc[0][r][p][c] + b, 0.f);
+    }
+  }
+}
+
+// e1 [64][18][18] (halo fixed) -> relu(conv1_2) on the 16x16 tile -> 2x2 max
+// pool -> out_b [64][h][w] (one image's pooled map), rows 8*by.., cols 8*bx...
+// A lane's 2x2 pixel tile is one pool window, so the pool is taken in
+// registers. ws stages the weights we2 [64][9][64] (global) 8 channels a time.
+__device__ __forceinline__ void stage_e2_pool(const float* e1, float* ws,
+                                              const float* __restrict__ we2,
+                                              const float* __restrict__ be2,
+                                              float* __restrict__ out_b, int h, int w,
+                                              int by, int bx) {
+  const int lane = threadIdx.x & 31, co0 = (threadIdx.x >> 5) * 8;
+  int base[2];
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int t = lane + 32 * k;
+    base[k] = 2 * (t >> 3) * kE1S + 2 * (t & 7);
+  }
+  float acc[2][2][2][8] = {};
+  for (int c0 = 0; c0 < kCh; c0 += kChunk) {
+    __syncthreads();
+    copy4(ws, we2 + c0 * kTapStride, kWsFloats);
+    __syncthreads();
+    conv_accumulate<2>(e1 + c0 * kE1S * kE1S, kE1S * kE1S, kE1S, kChunk, ws + co0, base, acc);
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+    const int t = lane + 32 * k;
+    const int y = (kT / 2) * by + (t >> 3), x = (kT / 2) * bx + (t & 7);
+#pragma unroll
+    for (int c = 0; c < 8; ++c) {
+      const float b = __ldg(be2 + co0 + c);
+      const float v = fmaxf(fmaxf(fmaxf(acc[k][0][0][c] + b, 0.f), fmaxf(acc[k][0][1][c] + b, 0.f)),
+                            fmaxf(fmaxf(acc[k][1][0][c] + b, 0.f), fmaxf(acc[k][1][1][c] + b, 0.f)));
+      out_b[((size_t)(co0 + c) * h + y) * w + x] = v;
+    }
+  }
+}
+
+}  // namespace wct

@@ -5,9 +5,11 @@ Counterpart of ``wct_tpu/models/cascade.py``: content flows relu5_1 →
 ``alpha`` against the cached style statistics, and decodes. The style
 is encoded once (``precompute_style``, one trunk sweep for all levels).
 
-This slice ports the unfused, unpacked f32 WCT path
-(``cascade.py:526-557``, ``645-647``, ``705-715``). Every
-``CascadeConfig`` field and check is kept, so the same illegal
+Ported: the unpacked f32 WCT path, unfused (``cascade.py:526-557``,
+``645-647``, ``705-715``) and with ``fuse_junction`` (``:474-476``,
+``:545-547``, ``:609-644``, ``:648-704``), where the full-resolution
+segment between two levels runs in the kernels of ``ops/junction.py``.
+Every ``CascadeConfig`` field and check is kept, so the same illegal
 combinations raise the same ``ValueError``; options that are legal but
 not ported yet raise ``NotImplementedError`` naming the ROADMAP.md item
 that carries them.
@@ -26,6 +28,7 @@ import torch.nn.functional as F
 
 from wct_tpu_torch.models import decoder as dec_lib
 from wct_tpu_torch.models import vgg
+from wct_tpu_torch.ops import junction as junction_ops
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import to_nchw, to_nhwc
 from wct_tpu_torch.utils.device import params_device, resolve_device, set_fp32_numerics
@@ -181,8 +184,6 @@ class CascadeConfig:
              wct_ops.ITEM_THROUGHPUT),
             (self.conv_precision == "high", "conv_precision='high'",
              wct_ops.ITEM_THROUGHPUT),
-            (self.fuse_junction, "fuse_junction",
-             wct_ops.ITEM_VARIANTS + " with queue 2 kernels 4-6"),
             (self.pack2_junction, "pack2_junction", wct_ops.ITEM_VARIANTS),
             (self.fold_transform, "fold_transform", wct_ops.ITEM_VARIANTS),
             (self.ring_conv, "ring_conv", wct_ops.ITEM_VARIANTS),
@@ -287,15 +288,68 @@ def stylize_fn(
     if pad_h or pad_w:
         mode = "reflect" if (pad_h < h and pad_w < w) else "replicate"
         x = F.pad(x, (0, pad_w, 0, pad_h), mode=mode)
+    # Fused-junction eligibility is a static rule on the (padded) shape;
+    # ineligible shapes take the unfused path.
+    junction_ok = cfg.fuse_junction and x.shape[2] % 16 == 0 and x.shape[3] % 16 == 0
+    enc = params["encoder"]
+    head_weights = tuple(
+        enc[name][k] for name in ("conv0", "conv1_1", "conv1_2") for k in ("w", "b")
+    )
+    # What the running state is: 'img' RGB, or 'pooled', the encoder
+    # state right after pool1. (The reference's third kind, relu1_1
+    # features out of a shallow junction, is never produced: see below.)
+    state_kind = "img"
     for _ in range(cfg.passes):
-        for level in cfg.relu_targets:
-            feats = vgg.encode_multi_nchw(
-                params["encoder"], x, (level,), compose_pre=cfg.compose_conv0
-            )[level]
-            transformed = _transform_level(feats, level, style_cache[level], alpha, cfg)
-            x = dec_lib.decode_nchw(params["decoders"][level], transformed, level)
-            if cfg.clip_between_levels:
-                x = x.clamp(0.0, 1.0)
+        for li, level in enumerate(cfg.relu_targets):
+            if state_kind == "img":
+                if junction_ok and level != "relu1_1":
+                    p1 = junction_ops.encoder_head_nchw(x, *head_weights)
+                    feats = vgg.encode_from_pool1_nchw(enc, p1, level)
+                else:
+                    feats = vgg.encode_multi_nchw(
+                        enc, x, (level,), compose_pre=cfg.compose_conv0
+                    )[level]
+            else:
+                feats = vgg.encode_from_pool1_nchw(enc, x, level)
+            style = style_cache[level]
+            dec_p = params["decoders"][level]
+            layers = dec_lib.decoder_layers(level)
+            nxt = cfg.relu_targets[li + 1] if li + 1 < len(cfg.relu_targets) else None
+            if junction_ok and len(layers) == 1:
+                # Single-conv decoder (relu1_1): fold each image's WCT
+                # affine into the conv; the apply matmul and the 64→3
+                # conv collapse into the per-image-weight tail kernel.
+                b, c, fh, fw = feats.shape
+                m, bias = wct_ops.wct_transform_cn(
+                    feats.reshape(b, c, fh * fw), style.stats, alpha, method=cfg.method,
+                    ns_iters=cfg.ns_iters_for(level),
+                )
+                conv = dec_p[layers[0][1]]
+                wf, bf = dec_lib.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
+                x = junction_ops.decoder_tail_nchw(
+                    feats, wf, bf, clip=cfg.clip_between_levels
+                )
+                state_kind = "img"
+                continue
+            transformed = _transform_level(feats, level, style, alpha, cfg)
+            # The 2→1 boundary keeps the unfused decode + encode, as the
+            # reference does (its shallow kernel variant does not
+            # compile for the TPU), so both compute the same thing.
+            if (
+                junction_ok and nxt is not None and nxt != "relu1_1"
+                and dec_lib.has_standard_tail(level)
+            ):
+                d = dec_lib.decode_partial_nchw(dec_p, transformed, level)
+                x = junction_ops.junction_nchw(
+                    d, *dec_lib.tail_weights(dec_p, level), *head_weights,
+                    deep=True, clip=cfg.clip_between_levels,
+                )
+                state_kind = "pooled"
+            else:
+                x = dec_lib.decode_nchw(dec_p, transformed, level)
+                if cfg.clip_between_levels:
+                    x = x.clamp(0.0, 1.0)
+                state_kind = "img"
     # Reference clips once before save (stylize.py:~150).
     return to_nhwc(x.clamp(0.0, 1.0)[:, :, :h, :w])
 

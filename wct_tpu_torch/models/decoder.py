@@ -67,6 +67,72 @@ def decode_nchw(params: dict, f: torch.Tensor, target: str) -> torch.Tensor:
     return x
 
 
+def fold_affine_into_conv(
+    m: torch.Tensor, bias: torch.Tensor, w: torch.Tensor, b: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Fold a per-image affine (x ↦ x@M_b + β_b) into a shared conv.
+
+    ``m [B, C, C]`` dense or ``[B, C]`` diagonal, ``bias [B, C]``,
+    ``w [Co, C, kh, kw]``, ``b [Co]`` → per-image
+    ``(w' [B, Co, C, kh, kw], b' [B, Co])`` with
+    conv'(x) = conv(x @ M + β): reflect padding commutes with a
+    per-pixel affine. Folded in f32.
+    """
+    w32 = w.float()
+    if m.dim() == 3:
+        w_fold = torch.einsum("bij,ojyx->boiyx", m.float(), w32)
+    else:
+        w_fold = w32[None] * m.float()[:, None, :, None, None]
+    b_fold = b.float()[None] + torch.einsum("bj,ojyx->bo", bias.float(), w32)
+    return w_fold, b_fold
+
+
+def has_standard_tail(target: str) -> bool:
+    """True iff the decoder ends [upsample, conv 64→64, conv 64→3], the
+    shape the fused junction kernel (``ops/junction.py``) replaces.
+    Holds for every target deeper than relu1_1."""
+    layers = decoder_layers(target)
+    if len(layers) < 3:
+        return False
+    up, c1, c2 = layers[-3], layers[-2], layers[-1]
+    return (
+        up[0] == "upsample"
+        and c1[0] == "conv" and c1[2] == 64 and c1[3] == 64
+        and c2[0] == "conv" and c2[2] == 64 and c2[3] == 3
+    )
+
+
+def decode_partial_nchw(params: dict, f: torch.Tensor, target: str) -> torch.Tensor:
+    """``decode_partial`` on NCHW features; returns NCHW ``[B, 64, h, w]``."""
+    if not has_standard_tail(target):
+        raise ValueError(f"the {target} decoder has no [upsample, conv, conv] tail")
+    x = f
+    for spec in decoder_layers(target)[:-3]:
+        if spec[0] == "upsample":
+            x = upsample_nearest2_nchw(x)
+            continue
+        p = params[spec[1]]
+        x = torch.relu(conv2d_reflect_nchw(x, p["w"], p["b"]))
+    return x
+
+
+def decode_partial(params: dict, f: torch.Tensor, target: str) -> torch.Tensor:
+    """Run the decoder up to (excluding) its final [upsample, conv, conv]
+    tail; the fused junction kernel finishes the job. Every conv here
+    gets a ReLU (none is the final linear conv)."""
+    return to_nhwc(decode_partial_nchw(params, to_nchw(f), target))
+
+
+def tail_weights(params: dict, target: str) -> tuple:
+    """(w1, b1, w2, b2) of the decoder's final two convs (64→64, 64→3)."""
+    layers = decoder_layers(target)
+    n1, n2 = layers[-2][1], layers[-1][1]
+    return (
+        params[n1]["w"], params[n1]["b"],
+        params[n2]["w"], params[n2]["b"],
+    )
+
+
 def decode(params: dict, f: torch.Tensor, target: str) -> torch.Tensor:
     """Decode features ``[B, h, w, C]`` at ``target`` to ``[B, H, W, 3]``.
 

@@ -6,7 +6,7 @@ Counterpart of ``wct_tpu/models/vgg.py``: a 1×1 preprocessing conv0
 plain dict ``{layer: {"w": [out, in, kh, kw], "b": [out]}}``.
 
 The public functions take and return ``[B, H, W, C]``; the cascade
-calls the NCHW forms (``encode_multi_nchw``).
+calls the NCHW forms (``encode_multi_nchw``, ``encode_from_pool1_nchw``).
 """
 
 from __future__ import annotations
@@ -162,6 +162,19 @@ def encode(
     return encode_multi(params, x, (target,), compose_pre)[target]
 
 
+def encode_from_pool1_nchw(
+    params: dict, x: torch.Tensor, target: str
+) -> torch.Tensor:
+    """``encode_from_pool1`` on the NCHW state ``x [B, 64, H/2, W/2]``."""
+    idx = _TARGET_TO_IDX[target]
+    if idx <= _POOL1_IDX:
+        raise ValueError(f"{target} is before pool1; nothing to resume")
+    layers = [
+        (i, ENCODER_LAYERS[i]) for i in range(_POOL1_IDX + 1, idx + 1)
+    ]
+    return _run(params, x, layers, {idx: target})[target]
+
+
 def encode_from_pool1(
     params: dict, x: torch.Tensor, target: str
 ) -> torch.Tensor:
@@ -169,10 +182,4 @@ def encode_from_pool1(
 
     ``target`` must be relu2_1 or deeper.
     """
-    idx = _TARGET_TO_IDX[target]
-    if idx <= _POOL1_IDX:
-        raise ValueError(f"{target} is before pool1; nothing to resume")
-    layers = [
-        (i, ENCODER_LAYERS[i]) for i in range(_POOL1_IDX + 1, idx + 1)
-    ]
-    return to_nhwc(_run(params, to_nchw(x), layers, {idx: target})[target])
+    return to_nhwc(encode_from_pool1_nchw(params, to_nchw(x), target))

@@ -2,10 +2,12 @@
 
 - ``wct``        — whitening–coloring transform + style-stat cache
 - ``sqrtm``      — Newton–Schulz matrix ±sqrt (plain + CUDA kernel)
+- ``junction``   — fused encoder head, decoder tail and level junction
+                   (plain + CUDA kernels)
 - ``convs``      — reflect-pad conv, maxpool, NN-upsample primitives
 - ``reductions`` — f32 sum reductions of the WCT stage
 """
 
-from wct_tpu_torch.ops import convs, reductions, sqrtm, wct  # noqa: F401
+from wct_tpu_torch.ops import convs, junction, reductions, sqrtm, wct  # noqa: F401
 
-__all__ = ["convs", "reductions", "sqrtm", "wct"]
+__all__ = ["convs", "junction", "reductions", "sqrtm", "wct"]

@@ -1,0 +1,317 @@
+"""The fused cascade junction: encoder head, decoder tail, junction.
+
+Counterpart of ``wct_tpu/ops/junction_pallas.py``. Between two cascade
+levels the unfused path runs, at full image resolution, the decoder's
+last [upsample, conv 64→64, conv 64→3] and the encoder's first
+[conv0, conv1_1, conv1_2, pool1], each through device memory. Three
+functions fuse those segments, every conv reflect-padding its own input:
+
+- ``encoder_head``: RGB → post-pool1 state (conv0∘conv1_1 + ReLU,
+  conv1_2 + ReLU, 2×2 max pool);
+- ``junction``: decoder state ``d`` → upsample, dec conv 64→64 + ReLU,
+  dec conv 64→3 (optional clip), conv0∘conv1_1 + ReLU, then
+  ``deep=True``: conv1_2 + ReLU + pool (the next level's post-pool1
+  state) or ``deep=False``: the relu1_1 features;
+- ``decoder_tail``: the relu1_1 decoder's single conv 64→3 with
+  per-image weights (the cascade folds each image's WCT affine into it).
+
+Each has a plain PyTorch version (``_encoder_head_plain``,
+``_junction_plain``, ``_decoder_tail_plain``: the unfused chain out of
+``ops/convs.py``) and a hand-written CUDA kernel (``csrc/encoder_head.cu``,
+``csrc/junction.cu``, ``csrc/decoder_tail.cu``; the designs and bounds
+are in the sources). A CUDA tensor launches the kernel or raises, a CPU
+tensor takes the plain version, any other device raises; there is no
+fallback from kernel to plain. ``encoder_head_cuda.launches`` etc.
+count the launches.
+
+The public functions take and return ``[B, H, W, C]`` as the JAX
+package's do; the cascade calls the ``*_nchw`` forms. Weights are the
+port's OIHW. f32 only: the bf16-operand form comes with the throughput
+path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from wct_tpu_torch.ops.convs import (
+    compose_1x1_into_conv,
+    conv2d_reflect_nchw,
+    maxpool2_nchw,
+    pad_reflect_nchw,
+    to_nchw,
+    to_nhwc,
+    upsample_nearest2_nchw,
+)
+
+# The kernels work on 16×16 tiles of the full-resolution image.
+TILE = 16
+CHANNELS = 64
+
+
+def fold_conv0(w0, b0, w11, b11):
+    """Fold the 1×1 preprocessing conv into conv1_1 (both linear).
+
+    ``w0 [3, 3, 1, 1]``, ``w11 [64, 3, 3, 3]`` → ``(w' [64, 3, 3, 3],
+    b' [64])`` in f32 with conv'(x) = conv1_1(conv0(x)); exact because a
+    per-pixel affine commutes with reflect padding.
+    """
+    return compose_1x1_into_conv(w0, b0, w11, b11)
+
+
+# ---------------------------------------------------------------- plain
+
+
+def _encoder_head_plain(x, we1, be1, w12, b12):
+    """``x [B, 3, H, W]`` → ``[B, 64, H/2, W/2]``; ``we1, be1`` folded."""
+    e1 = torch.relu(conv2d_reflect_nchw(x, we1, be1))
+    return maxpool2_nchw(torch.relu(conv2d_reflect_nchw(e1, w12, b12)))
+
+
+def _junction_plain(d, wd1, bd1, wd2, bd2, we1, be1, w12, b12, deep, clip):
+    """``d [B, 64, h, w]`` → ``[B, 64, h, w]`` (deep) or ``[B, 64, 2h, 2w]``."""
+    m = torch.relu(conv2d_reflect_nchw(upsample_nearest2_nchw(d), wd1, bd1))
+    rgb = conv2d_reflect_nchw(m, wd2, bd2)
+    if clip:
+        rgb = rgb.clamp(0.0, 1.0)
+    e1 = torch.relu(conv2d_reflect_nchw(rgb, we1, be1))
+    if not deep:
+        return e1
+    return maxpool2_nchw(torch.relu(conv2d_reflect_nchw(e1, w12, b12)))
+
+
+def _decoder_tail_plain(f, w, b, clip):
+    """``f [B, 64, H, W]``, ``w [B, 3, 64, 3, 3]``, ``b [B, 3]`` →
+    ``[B, 3, H, W]``: one grouped conv, a group per image."""
+    bsz, c, h, wd = f.shape
+    x = pad_reflect_nchw(f).reshape(1, bsz * c, h + 2, wd + 2)
+    out = F.conv2d(x, w.reshape(bsz * 3, c, 3, 3), b.reshape(-1), groups=bsz)
+    out = out.reshape(bsz, 3, h, wd)
+    return out.clamp(0.0, 1.0) if clip else out
+
+
+# -------------------------------------------------------------- kernels
+
+
+def _taps(w: torch.Tensor, pad_co: int | None = None) -> torch.Tensor:
+    """OIHW ``[..., co, ci, 3, 3]`` → the kernels' ``[..., ci, tap, co]``,
+    f32 contiguous, ``co`` zero-padded to ``pad_co``."""
+    t = w.float().movedim(-4, -1).flatten(-3, -2)
+    if pad_co is not None:
+        t = F.pad(t, (0, pad_co - t.shape[-1]))
+    return t.contiguous()
+
+
+def _check_input(name: str, x: torch.Tensor, channels: int, scale: int = 1) -> None:
+    """What both routes need of the map ``x [B, channels, H/scale, W/scale]``."""
+    if x.dim() != 4 or x.shape[1] != channels:
+        raise ValueError(f"{name} needs [B, {channels}, H, W], got {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(f"{name} needs float32, got {x.dtype}")
+    h, w = scale * x.shape[2], scale * x.shape[3]
+    if h <= 0 or w <= 0 or h % TILE or w % TILE:
+        raise ValueError(
+            f"{name} needs a full-resolution H and W that are multiples of "
+            f"{TILE}, got {h}×{w}"
+        )
+
+
+def _check_on_card(name: str, x: torch.Tensor, weights: dict) -> None:
+    """What the kernel needs beyond ``_check_input``; ``weights`` maps a
+    description to ``(tensor, shape)``."""
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous tensor")
+    if not 0 < x.shape[0] <= 65535:
+        raise ValueError(f"{name} takes 1..65535 images, got {x.shape[0]}")
+    for what, (t, shape) in weights.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} needs {what} {list(shape)}, got {list(t.shape)}")
+        if t.device != x.device:
+            raise ValueError(f"{name} needs {what} on {x.device}, got {t.device}")
+
+
+def _launch(name: str, lib: str, symbol: str, argtypes: list, args: tuple, device) -> None:
+    from wct_tpu_torch.ops import _build
+
+    fn = getattr(_build.load(lib), symbol)
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
+
+
+_PTR, _INT = ctypes.c_void_p, ctypes.c_int
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.float().contiguous()
+
+
+def encoder_head_cuda(x, we1, be1, w12, b12) -> torch.Tensor:
+    """The CUDA kernel on ``x [B, 3, H, W]`` (f32, contiguous, on the
+    card; H and W multiples of 16) → ``[B, 64, H/2, W/2]``.
+
+    ``we1 [64, 3, 3, 3], be1`` is the folded conv0∘conv1_1. Launches on
+    the current stream and does not synchronise; raises on any input
+    the kernel does not take, and if the launch fails.
+    """
+    name = "encoder_head_cuda"
+    _check_input(name, x, 3)
+    _check_on_card(name, x, {
+        "conv1_1": (we1, (CHANNELS, 3, 3, 3)), "conv1_1's bias": (be1, (CHANNELS,)),
+        "conv1_2": (w12, (CHANNELS, CHANNELS, 3, 3)), "conv1_2's bias": (b12, (CHANNELS,)),
+    })
+    b, _, h, w = x.shape
+    out = torch.empty((b, CHANNELS, h // 2, w // 2), dtype=torch.float32, device=x.device)
+    t1, t2, c1, c2 = _taps(we1), _taps(w12), _f32(be1), _f32(b12)
+    _launch(name, "encoder_head", "encoder_head_f32", [_PTR] * 6 + [_INT] * 3,
+            (x.data_ptr(), t1.data_ptr(), c1.data_ptr(), t2.data_ptr(), c2.data_ptr(),
+             out.data_ptr(), b, h, w), x.device)
+    encoder_head_cuda.launches += 1
+    return out
+
+
+encoder_head_cuda.launches = 0
+
+
+def junction_cuda(d, wd1, bd1, wd2, bd2, we1, be1, w12=None, b12=None,
+                  deep: bool = True, clip: bool = False) -> torch.Tensor:
+    """The CUDA kernel on ``d [B, 64, h, w]`` (f32, contiguous, on the
+    card; 2h and 2w multiples of 16) → ``[B, 64, h, w]`` (deep) or
+    ``[B, 64, 2h, 2w]``. Conditions as ``encoder_head_cuda``."""
+    name = "junction_cuda"
+    _check_input(name, d, CHANNELS, scale=2)
+    weights = {
+        "the decoder's 64→64 conv": (wd1, (CHANNELS, CHANNELS, 3, 3)),
+        "the 64→64 conv's bias": (bd1, (CHANNELS,)),
+        "the decoder's 64→3 conv": (wd2, (3, CHANNELS, 3, 3)),
+        "the 64→3 conv's bias": (bd2, (3,)),
+        "conv1_1": (we1, (CHANNELS, 3, 3, 3)), "conv1_1's bias": (be1, (CHANNELS,)),
+    }
+    if deep:
+        if w12 is None or b12 is None:
+            raise ValueError("junction_cuda(deep=True) needs conv1_2's weights")
+        weights.update({"conv1_2": (w12, (CHANNELS, CHANNELS, 3, 3)),
+                        "conv1_2's bias": (b12, (CHANNELS,))})
+    _check_on_card(name, d, weights)
+    b, _, h, w = d.shape
+    if deep:
+        t4, c4 = _taps(w12), _f32(b12)
+    shape = (b, CHANNELS, h, w) if deep else (b, CHANNELS, 2 * h, 2 * w)
+    out = torch.empty(shape, dtype=torch.float32, device=d.device)
+    t1, t2, t3 = _taps(wd1), _taps(wd2, pad_co=4), _taps(we1)
+    c1, c2, c3 = _f32(bd1), _f32(bd2), _f32(be1)
+    if not deep:  # never read by the kernel
+        t4, c4 = t1, c1
+    _launch(name, "junction", "junction_f32", [_PTR] * 10 + [_INT] * 5,
+            (d.data_ptr(), t1.data_ptr(), c1.data_ptr(), t2.data_ptr(), c2.data_ptr(),
+             t3.data_ptr(), c3.data_ptr(), t4.data_ptr(), c4.data_ptr(), out.data_ptr(),
+             b, h, w, int(deep), int(clip)), d.device)
+    junction_cuda.launches += 1
+    return out
+
+
+junction_cuda.launches = 0
+
+
+def decoder_tail_cuda(f, w, b, clip: bool = False) -> torch.Tensor:
+    """The CUDA kernel on ``f [B, 64, H, W]`` (f32, contiguous, on the
+    card; H and W multiples of 16) with per-image ``w [B, 3, 64, 3, 3]``,
+    ``b [B, 3]`` → ``[B, 3, H, W]``. Conditions as ``encoder_head_cuda``."""
+    name = "decoder_tail_cuda"
+    _check_input(name, f, CHANNELS)
+    bsz, _, h, wd = f.shape
+    _check_on_card(name, f, {"per-image weights": (w, (bsz, 3, CHANNELS, 3, 3)),
+                             "per-image biases": (b, (bsz, 3))})
+    out = torch.empty((bsz, 3, h, wd), dtype=torch.float32, device=f.device)
+    t = _taps(w, pad_co=4)
+    c = F.pad(b.float(), (0, 1)).contiguous()
+    _launch(name, "decoder_tail", "decoder_tail_f32", [_PTR] * 4 + [_INT] * 4,
+            (f.data_ptr(), t.data_ptr(), c.data_ptr(), out.data_ptr(), bsz, h, wd, int(clip)),
+            f.device)
+    decoder_tail_cuda.launches += 1
+    return out
+
+
+decoder_tail_cuda.launches = 0
+
+
+# ------------------------------------------------------------- wrappers
+
+
+def _route(name: str, x: torch.Tensor, kernel, plain, *args):
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
+    if x.device.type == "cuda":
+        return kernel(x, *args)
+    if x.device.type != "cpu":
+        raise ValueError(f"no {name} kernel for device {x.device}")
+    return plain(x, *args)
+
+
+def encoder_head_nchw(x, enc_w0, enc_b0, enc_w11, enc_b11, enc_w12, enc_b12):
+    """``encoder_head`` on NCHW ``x [B, 3, H, W]`` → ``[B, 64, H/2, W/2]``."""
+    _check_input("encoder_head", x, 3)
+    we1, be1 = fold_conv0(enc_w0, enc_b0, enc_w11, enc_b11)
+    return _route("encoder_head", x, encoder_head_cuda, _encoder_head_plain,
+                  we1, be1, enc_w12, enc_b12)
+
+
+def encoder_head(img, enc_w0, enc_b0, enc_w11, enc_b11, enc_w12, enc_b12):
+    """Fused [conv0∘conv1_1 → relu → conv1_2 → relu → pool1] on RGB.
+
+    ``img [B, H, W, 3]`` → the post-pool1 encoder state
+    ``[B, H/2, W/2, 64]`` (feed ``vgg.encode_from_pool1`` for deeper
+    targets). Requires H % 16 == 0 and W % 16 == 0.
+    """
+    return to_nhwc(encoder_head_nchw(
+        to_nchw(img), enc_w0, enc_b0, enc_w11, enc_b11, enc_w12, enc_b12))
+
+
+def junction_nchw(d, dec_w1, dec_b1, dec_w2, dec_b2, enc_w0, enc_b0, enc_w11, enc_b11,
+                  enc_w12=None, enc_b12=None, *, deep: bool = True, clip: bool = False):
+    """``junction`` on NCHW ``d [B, 64, h, w]``; returns NCHW."""
+    _check_input("junction", d, CHANNELS, scale=2)
+    if deep and (enc_w12 is None or enc_b12 is None):
+        raise ValueError("junction(deep=True) needs conv1_2's weights")
+    we1, be1 = fold_conv0(enc_w0, enc_b0, enc_w11, enc_b11)
+    return _route("junction", d, junction_cuda, _junction_plain, dec_w1, dec_b1, dec_w2,
+                  dec_b2, we1, be1, enc_w12, enc_b12, deep, clip)
+
+
+def junction(d, dec_w1, dec_b1, dec_w2, dec_b2, enc_w0, enc_b0, enc_w11, enc_b11,
+             enc_w12=None, enc_b12=None, *, deep: bool = True, clip: bool = False):
+    """Fused [upsample → dec conv 64→64 → dec conv 64→3 → (clip) →
+    enc conv0∘conv1_1 → (conv1_2 → pool)] on ``d [B, h, w, 64]``.
+
+    ``deep=True`` → the pooled relu-conv1_2 output ``[B, h, w, 64]``
+    (the encoder state right after pool1, for the next cascade level);
+    ``deep=False`` → the relu1_1 features ``[B, 2h, 2w, 64]``. Requires
+    2h % 16 == 0 and 2w % 16 == 0.
+    """
+    return to_nhwc(junction_nchw(
+        to_nchw(d), dec_w1, dec_b1, dec_w2, dec_b2, enc_w0, enc_b0, enc_w11, enc_b11,
+        enc_w12, enc_b12, deep=deep, clip=clip))
+
+
+def decoder_tail_nchw(f, w, b, clip: bool = False):
+    """``decoder_tail`` on NCHW ``f [B, 64, H, W]`` → ``[B, 3, H, W]``."""
+    _check_input("decoder_tail", f, CHANNELS)
+    return _route("decoder_tail", f, decoder_tail_cuda, _decoder_tail_plain, w, b, clip)
+
+
+def decoder_tail(f, w, b, clip: bool = False):
+    """Final 64→3 decoder conv with per-image weights, RGB out.
+
+    ``f [B, H, W, 64]`` relu1_1-level features, ``w [B, 3, 64, 3, 3]``
+    (OIHW per image, as ``decoder.fold_affine_into_conv`` returns),
+    ``b [B, 3]`` → RGB ``[B, H, W, 3]``, clipped to [0, 1] if ``clip``.
+    Requires H % 16 == 0, W % 16 == 0 and 64 channels.
+    """
+    return to_nhwc(decoder_tail_nchw(to_nchw(f), w, b, clip))

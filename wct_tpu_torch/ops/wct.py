@@ -228,25 +228,29 @@ def _apply_kernel(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
     return (kernel.float().mT @ x.float().mT).mT
 
 
-def wct_from_stats_cn(
+def wct_transform_cn(
     x: torch.Tensor, stats: StyleStats, alpha: torch.Tensor | float = 1.0, *,
     eps: float = DEFAULT_EPS, trunc: float = DEFAULT_TRUNC,
     method: Method = "eigh", groups: int = 1, soft_trunc: bool = False,
     ns_iters: int | None = None, trunc_topk: int | None = None,
     rel_trunc: float | None = None,
-) -> torch.Tensor:
-    """WCT of content ``x [B, C, N]`` against cached style stats → ``[B, C, N]``.
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The WCT of content ``x [B, C, N]`` as per-image affines:
+    ``(M [B, C, C], bias [B, C])``, both f32.
 
-    Whitening, coloring and the α-blend fold into one C×C affine:
+    Whitening, coloring and the α-blend fold into one C×C matrix:
 
-        T   = W_c @ K_s
-        out = x @ (α·T + (1−α)·I) + α·(μ_s − μ_c @ T)
+        T    = W_c @ K_s
+        M    = α·T + (1−α)·I
+        bias = α·(μ_s − μ_c @ T)
 
-    which is the reference's ``α·((x − μ_c)·T + μ_s) + (1−α)·x``
-    (ops.py:~135), blended against the uncentred content. At α=0 the
-    matrix is exactly I and the bias exactly 0.
+    so that ``x_flat @ M + bias`` is the reference's
+    ``α·((x − μ_c)·T + μ_s) + (1−α)·x`` (ops.py:~135), blended against
+    the uncentred content. At α=0 the matrix is exactly I and the bias
+    exactly 0. Exposed so that a consumer can fold the affine into the
+    linear op that follows (the cascade folds it into the relu1_1
+    decoder conv, ``models/decoder.py::fold_affine_into_conv``).
     """
-    in_dtype = x.dtype
     w_c, mu_c = whitening_kernel_cn(
         x, eps=eps, trunc=trunc, method=method, groups=groups,
         soft_trunc=soft_trunc, ns_iters=ns_iters, trunc_topk=trunc_topk,
@@ -267,8 +271,30 @@ def wct_from_stats_cn(
     mu_c_t = reductions.vecmat(mu_c, transform)
     blended = alpha * transform + (1.0 - alpha) * eye
     bias = alpha * (mu_s - mu_c_t)
+    return blended, bias
+
+
+def wct_transform(
+    fc: torch.Tensor, stats: StyleStats, alpha: torch.Tensor | float = 1.0, **kw
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The WCT of one image ``fc [H, W, C]`` as an explicit affine
+    ``(M [C, C], bias [C])``: ``wct_from_stats(fc, …) == fc_flat @ M + bias``.
+
+    Keyword arguments as ``wct_transform_cn``.
+    """
+    m, bias = wct_transform_cn(_cn(fc), stats, alpha, **kw)
+    return m[0], bias[0]
+
+
+def wct_from_stats_cn(
+    x: torch.Tensor, stats: StyleStats, alpha: torch.Tensor | float = 1.0, **kw
+) -> torch.Tensor:
+    """WCT of content ``x [B, C, N]`` against cached style stats → ``[B, C, N]``:
+    the affine of ``wct_transform_cn`` (same keyword arguments) applied
+    to the feature map."""
+    blended, bias = wct_transform_cn(x, stats, alpha, **kw)
     out = _apply_kernel(x.mT, blended).mT + bias[..., :, None]
-    return out.to(in_dtype)
+    return out.to(x.dtype)
 
 
 def wct_from_stats(
