@@ -8,10 +8,14 @@ builds every CUDA kernel of the port from ``wct_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes (and
 at awkward ones), runs the five-level relu5_1 → relu1_1 cascade at
 512 px on the trained ``weights/bundle.npz`` through
-``precompute_style`` and ``stylize_microbatched`` twice, unfused
-(``CascadeConfig(method="newton_schulz_pallas")``) and with
-``fuse_junction=True``, checks the outputs of each and one against the
-other, and runs the CLI once.
+``precompute_style`` and ``stylize_microbatched`` three times: unfused
+(``CascadeConfig(method="newton_schulz_pallas")``), with
+``fuse_junction=True``, and in the bf16 throughput configuration
+(``compute_dtype="bfloat16", method="newton_schulz_fast",
+compose_conv0=True``, phase ``main_bf16``, which also sends the
+cascade's own relu1_1-tier tensors through the small-conv and
+centred-Gram entry points). It checks the outputs of each and one
+against the other, and runs the CLI twice.
 
 Each phase prints one JSON line. The line before the last lists each
 kernel with its launches in the main path's run and its times; the
@@ -33,9 +37,15 @@ import torch
 import torch.nn.functional as F
 
 from wct_tpu_torch.models import cascade, decoder, vgg
-from wct_tpu_torch.ops import _build, junction, sqrtm
+from wct_tpu_torch.ops import _build, conv_small, gram, junction, sqrtm
 from wct_tpu_torch.ops import wct as wct_ops
-from wct_tpu_torch.ops.convs import to_nchw
+from wct_tpu_torch.ops.convs import (
+    compose_1x1_into_conv,
+    conv2d_reflect_nchw,
+    to_nchw,
+    to_nhwc,
+    upsample_nearest2_nchw,
+)
 from wct_tpu_torch.train import checkpoint
 from wct_tpu_torch.utils import images
 from wct_tpu_torch.utils.device import cuda_ms
@@ -53,6 +63,8 @@ DEV = "cuda"
 # (NVIDIA's data sheets).
 _PEAK_SXM = (67.0e12, 3.35e12)  # fp32 FLOP/s, bytes/s
 _PEAK_PCIE = (51.2e12, 2.0e12)
+# Dense bf16 tensor-core rate of the same two parts.
+_PEAK_BF16_SXM, _PEAK_BF16_PCIE = 989.0e12, 756.0e12
 
 
 def emit(obj: dict) -> None:
@@ -68,6 +80,10 @@ def peaks(name: str) -> tuple[float, float]:
     return _PEAK_PCIE if "PCIe" in name else _PEAK_SXM
 
 
+def bf16_peak(name: str) -> float:
+    return _PEAK_BF16_PCIE if "PCIe" in name else _PEAK_BF16_SXM
+
+
 def ns_bound_ms(batch: int, c: int, iters: int, flops: float, bw: float) -> tuple[float, str]:
     """Least time for one Newton–Schulz call: max(ops/peak, bytes/bandwidth)."""
     ops = batch * 2 * iters * 3 * c**3  # wct_tpu/ops/sqrtm.py:208
@@ -81,16 +97,23 @@ KERNEL_WRAPPERS = {
     "encoder_head": junction.encoder_head_cuda,
     "junction": junction.junction_cuda,
     "decoder_tail": junction.decoder_tail_cuda,
+    "centered_gram": gram.centered_gram_cuda,
 }
+NO_LAUNCHES = {**{name: 0 for name in KERNEL_WRAPPERS}, "conv3x3_small": 0, "conv3x3_small_nchw": 0}
 
 
 def reset_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    conv_small.conv3x3_small_cuda.launches = 0
+    conv_small.conv3x3_small_cuda.launches_by_layout = {"nchw": 0, "nhwc": 0}
 
 
 def read_counts() -> dict:
-    return {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    """Launches per kernel; the small conv per entry (NHWC, NCHW)."""
+    by_layout = conv_small.conv3x3_small_cuda.launches_by_layout
+    return {**{name: fn.launches for name, fn in KERNEL_WRAPPERS.items()},
+            "conv3x3_small": by_layout["nhwc"], "conv3x3_small_nchw": by_layout["nchw"]}
 
 
 def conv_bound_ms(ops: float, nbytes: float, flops: float, bw: float) -> tuple[float, str]:
@@ -209,8 +232,8 @@ def phase_main(params, content, style, cfg):
     launches = counts["ns_sqrtm"]
     n_levels = len(cfg.relu_targets)
     n_chunks = -(-N_CONTENT // MICROBATCH)
-    check(counts == {"ns_sqrtm": n_levels * (1 + n_chunks), "encoder_head": 0, "junction": 0,
-                     "decoder_tail": 0}, f"unfused main path launched {counts}")
+    check(counts == {**NO_LAUNCHES, "ns_sqrtm": n_levels * (1 + n_chunks)},
+          f"unfused main path launched {counts}")
     check(tuple(out.shape) == (N_CONTENT, SIZE, SIZE, 3), f"output shape {tuple(out.shape)}")
     check(bool(torch.isfinite(out).all()), "non-finite output")
     check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output outside [0, 1]")
@@ -407,7 +430,7 @@ def phase_main_fused(params, content, style, cfg, out_unfused, cache_unfused, cf
     wall = time.perf_counter() - t0
     counts = read_counts()
     n_chunks = -(-N_CONTENT // MICROBATCH)
-    expected = {"ns_sqrtm": 5 * (1 + n_chunks), "encoder_head": n_chunks,
+    expected = {**NO_LAUNCHES, "ns_sqrtm": 5 * (1 + n_chunks), "encoder_head": n_chunks,
                 "junction": 3 * n_chunks, "decoder_tail": n_chunks}
     check(counts == expected, f"fused main path launched {counts}, expected {expected}")
     check(tuple(out.shape) == (N_CONTENT, SIZE, SIZE, 3), f"output shape {tuple(out.shape)}")
@@ -488,6 +511,335 @@ def phase_main_fused(params, content, style, cfg, out_unfused, cache_unfused, cf
     return counts
 
 
+# The bf16 throughput configuration: the JAX package's throughput preset
+# without its TPU-lane rewrite pack2_junction.
+THROUGHPUT = dict(compute_dtype="bfloat16", method="newton_schulz_fast", compose_conv0=True)
+# Small conv, kernel against plain: both sum exact bf16 products in f32 and
+# round once, so they differ by at most one bf16 ulp (≤ 2⁻⁷·|ref|) where the
+# order of the sum moves a value across a rounding point.
+# Against the cascade's stock conv, which rounds the sum and then adds the
+# bf16 bias: |Δ| ≤ 2⁻⁷·(|ref| + max|bias|).
+# Centred Gram: relative Frobenius ≤ 1e-6 against a float64 evaluation, at
+# every shape. Against the plain version only ≤ 1e-4: ReLU features are
+# mostly zeros, every zero gives the same centred product, and the plain
+# version's f32 sum of thousands of equal terms rounds the same way at each
+# step (its own error against float64 is printed beside the kernel's).
+GRAM_LIMIT, GRAM_F64_LIMIT = 1e-4, 1e-6
+# Throughput cascade against the f32 cascade: the reference's gates
+# (tests/test_trained_fidelity.py): one level q99 < 0.05, composed median < 0.2.
+LEVEL_Q99_LIMIT, COMPOSED_MEDIAN_LIMIT = 0.05, 0.2
+
+
+def ulp_excess(got, ref, extra=0.0) -> float:
+    """max over elements of |got − ref| − (2⁻⁷·(|ref| + extra) + 1e-5·max|ref|);
+    ≤ 0 means within one bf16 ulp everywhere."""
+    got, ref = got.float(), ref.float()
+    limit = 2.0**-7 * (ref.abs() + extra) + 1e-5 * ref.abs().max()
+    return float(((got - ref).abs() - limit).max())
+
+
+def throughput_path_tensors(params, content, cache, cfg):
+    """What one microbatch of the bf16 cascade really produces at 512 px,
+    teacher-forced level by level: each level's features (the Gram's
+    inputs), and the full-resolution 64-channel tier around the relu2_1
+    decoder and the relu1_1 level (the small conv's inputs and the
+    outputs the cascade's own convs gave for them)."""
+    enc = params["encoder"]
+    t = {"feats": {}}
+    with torch.no_grad():
+        x = to_nchw(torch.as_tensor(content[:MICROBATCH], device=DEV)).to(cfg.dtype)
+        t["img0"] = x
+        t["head_w"] = compose_1x1_into_conv(enc["conv0"]["w"], enc["conv0"]["b"],
+                                            enc["conv1_1"]["w"], enc["conv1_1"]["b"])
+        t["e1_0"] = torch.relu(conv2d_reflect_nchw(x, *t["head_w"]))
+        for level in cfg.relu_targets:
+            feats = vgg.encode_multi_nchw(enc, x, (level,), compose_pre=True)[level]
+            t["feats"][level] = feats
+            tr = cascade._transform_level(feats, level, cache[level], ALPHA, cfg)
+            dec_p = params["decoders"][level]
+            if level == "relu2_1":
+                d = torch.relu(conv2d_reflect_nchw(tr, dec_p["dec_conv2_1"]["w"], dec_p["dec_conv2_1"]["b"]))
+                t["dec2_u"] = upsample_nearest2_nchw(d)
+                t["dec2_m"] = torch.relu(conv2d_reflect_nchw(
+                    t["dec2_u"], dec_p["dec_conv1_2"]["w"], dec_p["dec_conv1_2"]["b"]))
+            if level == "relu1_1":
+                t["img1"], t["f1"], t["tr1"] = x, feats, tr
+            x = decoder.decode_nchw(dec_p, tr, level)
+        t["out1"] = x
+    return t
+
+
+def phase_conv_small_kernels(params, t, name):
+    """conv3x3_small, both entries, against its plain version: the
+    trained 3→64, 64→64 and 64→3 convs on the tensors the throughput
+    cascade hands them, at B = 4 and B = 1, and awkward shapes."""
+    bw = peaks(name)[1]
+    tensor_rate = bf16_peak(name)
+    enc, dec2 = params["encoder"], params["decoders"]["relu2_1"]
+    pair = lambda p: (p["w"], p["b"])  # noqa: E731
+    cases = [
+        ("head_3to64_relu", t["img0"], t["head_w"], True),
+        ("conv1_2_64to64_relu", t["e1_0"], pair(enc["conv1_2"]), True),
+        ("dec_relu2_1_64to64_relu", t["dec2_u"], pair(dec2["dec_conv1_2"]), True),
+        ("dec_relu2_1_64to3", t["dec2_m"], pair(dec2["dec_conv1_1"]), False),
+    ]
+    gen = torch.Generator().manual_seed(SEED + 3)
+    rows = []
+
+    def run(case, x, w, b, relu, main):
+        bsz, cin, h, wd = x.shape
+        cout = w.shape[0]
+        x_nhwc = to_nhwc(x)
+        ref = conv_small._conv3x3_small_plain(x, w, b, relu)
+        got = conv_small.conv3x3_reflect_small_nchw(x, w, b, relu)
+        got_nhwc = conv_small.conv3x3_reflect_small(x_nhwc, w, b, relu)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got.float()).all()) and float(ref.float().abs().max()) > 0,
+              f"conv3x3_small {case}: degenerate output")
+        excess = ulp_excess(got, ref)
+        same = bool(torch.equal(to_nchw(got_nhwc), got))
+        again = bool(torch.equal(got, conv_small.conv3x3_reflect_small_nchw(x, w, b, relu)))
+        ops = bsz * 2 * h * wd * 9 * cin * cout
+        nbytes = bsz * h * wd * (cin + cout) * 2 + w.numel() * 2 + cout * 4
+        bound, by = conv_bound_ms(ops, nbytes, tensor_rate, bw)
+        n = 10 if main else 3
+        xp = F.pad(x, (1, 1, 1, 1), mode="reflect")
+        w16, b16 = w.to(torch.bfloat16), b.to(torch.bfloat16)
+        library = (lambda: torch.relu(F.conv2d(xp, w16, b16))) if relu else (lambda: F.conv2d(xp, w16, b16))
+        row = {"phase": "kernel", "kernel": "conv3x3_small", "case": case,
+               "shape_nchw": [bsz, cin, h, wd], "c_out": cout, "relu": relu, "main_path": main,
+               "ulp_excess": excess, "max_abs_err": float((got.float() - ref.float()).abs().max()),
+               "nhwc_equals_nchw_bitwise": same, "bitwise_repeatable": again,
+               "ms_nchw": cuda_ms(lambda: conv_small.conv3x3_reflect_small_nchw(x, w, b, relu), n),
+               "ms_nhwc": cuda_ms(lambda: conv_small.conv3x3_reflect_small(x_nhwc, w, b, relu), n),
+               "plain_ms": cuda_ms(lambda: conv_small._conv3x3_small_plain(x, w, b, relu), n // 2 + 1),
+               "library_ms": cuda_ms(library, n // 2 + 1),
+               "bound_ms": bound, "bound_by": by, "ffma_floor_ms": ops / peaks(name)[0] * 1e3}
+        emit(row)
+        check(excess <= 0, f"conv3x3_small vs plain at {case}: {excess:.2e} past one bf16 ulp")
+        check(same, f"conv3x3_small at {case}: NHWC and NCHW entries differ")
+        check(again, f"conv3x3_small at {case}: two calls differ")
+        rows.append(row)
+
+    for case, x, (w, b), relu in cases:
+        run(f"{case}_b4_512", x.contiguous(), w, b, relu, True)
+    for case, x, (w, b), relu in cases:
+        run(f"{case}_b1_512", x[:1].contiguous(), w, b, relu, False)
+    for bsz, h, wd in ((1, 8, 8), (2, 24, 40), (3, 16, 264)):
+        for case, _, (w, b), relu in cases:
+            x = torch.randn(bsz, w.shape[1], h, wd, generator=gen).to(DEV).to(torch.bfloat16)
+            run(f"{case}_b{bsz}_{h}x{wd}", x, w, b, relu, False)
+
+    def line(key):
+        main_rows = [r for r in rows if r["main_path"]]
+        return {"max_abs_err": max(r["max_abs_err"] for r in main_rows),
+                "ms": sum(r[key] for r in main_rows),
+                "plain_ms": sum(r["plain_ms"] for r in main_rows),
+                "bound_ms": sum(r["bound_ms"] for r in main_rows),
+                "bound_by": "bytes" if all(r["bound_by"] == "bytes" for r in main_rows) else "operations",
+                "library_ms": sum(r["library_ms"] for r in main_rows)}
+
+    return {"conv3x3_small": line("ms_nhwc"), "conv3x3_small_nchw": line("ms_nchw")}
+
+
+def phase_gram_kernel(t, name):
+    """centered_gram against its plain version: the five levels' bf16
+    features of the throughput cascade at B = 4 and B = 1, their f32
+    upcast at relu1_1, and N = 7 and 132."""
+    flops, bw = peaks(name)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    rows = []
+
+    def run(case, x, main):
+        bsz, c, n = x.shape
+        got, mean = gram.centered_gram_cn(x)
+        ref, ref_mean = gram._centered_gram_plain(x)
+        torch.cuda.synchronize()
+        err = rel_fro(got, ref)
+        mean_err = float((mean - ref_mean).abs().max() / ref_mean.abs().max())
+        again, _ = gram.centered_gram_cn(x)
+        alone, _ = gram.centered_gram_cn(x[-1:].contiguous())
+        row = {"phase": "kernel", "kernel": "centered_gram", "case": case, "shape": [bsz, c, n],
+               "dtype": str(x.dtype).split(".")[-1], "main_path": main, "rel_fro_err": err,
+               "mean_rel_err": mean_err, "max_abs_err": float((got - ref).abs().max()),
+               "bitwise_repeatable": bool(torch.equal(got, again)),
+               "alone_equals_batch_bitwise": bool(torch.equal(alone[0], got[-1]))}
+        x64 = x.double()
+        c64 = x64 - x64.mean(-1, keepdim=True)
+        g64 = c64 @ c64.mT
+        row["rel_fro_err_vs_float64"] = rel_fro(got.double(), g64)
+        row["plain_rel_fro_err_vs_float64"] = rel_fro(ref.double(), g64)
+        del x64, c64, g64
+        ops = bsz * (2 * n * c * c + 2 * n * c)
+        nbytes = bsz * (n * c * x.element_size() + (c * c + c) * 4)
+        bound, by = conv_bound_ms(ops, nbytes, flops, bw)
+        x32 = x.float()
+        library = lambda: ([torch.cov(xi) * (n - 1) for xi in x32], x32.mean(-1))  # noqa: E731
+        k = 10 if main else 3
+        row.update(ms=cuda_ms(lambda: gram.centered_gram_cn(x), k),
+                   plain_ms=cuda_ms(lambda: gram._centered_gram_plain(x), k // 2 + 1),
+                   library_ms=cuda_ms(library, k // 2 + 1),
+                   bound_ms=bound, bound_by=by)
+        emit(row)
+        check(err <= GRAM_LIMIT and mean_err <= GRAM_LIMIT,
+              f"centered_gram vs plain at {case}: gram {err:.2e}, mean {mean_err:.2e} > {GRAM_LIMIT}")
+        check(row["rel_fro_err_vs_float64"] <= GRAM_F64_LIMIT,
+              f"centered_gram vs float64 at {case}: {row['rel_fro_err_vs_float64']:.2e}")
+        check(row["bitwise_repeatable"] and row["alone_equals_batch_bitwise"],
+              f"centered_gram at {case}: result depends on the run or the batch")
+        rows.append(row)
+
+    for level, feats in t["feats"].items():
+        run(f"{level}_b4", feats.flatten(2).contiguous(), True)
+    for level, feats in t["feats"].items():
+        run(f"{level}_b1", feats[:1].flatten(2).contiguous(), False)
+    run("relu1_1_b4_f32", t["feats"]["relu1_1"].flatten(2).float().contiguous(), False)
+    for n, c in ((7, 256), (132, 512), (1000, 32)):
+        run(f"random_n{n}_c{c}_b6", torch.rand(6, c, n, generator=gen).to(DEV), False)
+    main_rows = [r for r in rows if r["main_path"]]
+    return {"centered_gram": {
+        "max_abs_err": max(r["max_abs_err"] for r in main_rows),
+        "ms": sum(r["ms"] for r in main_rows), "plain_ms": sum(r["plain_ms"] for r in main_rows),
+        "bound_ms": sum(r["bound_ms"] for r in main_rows),
+        "bound_by": "operations" if all(r["bound_by"] == "operations" for r in main_rows) else "bytes",
+        "library_ms": sum(r["library_ms"] for r in main_rows)}}
+
+
+def phase_main_bf16(params, content, style, cfg, out_f32, cache_f32, cfg_f32):
+    """The bf16 throughput cascade through the same entry points, then
+    the small-conv and centred-Gram entry points on its own relu1_1-tier
+    tensors; the launch counts cover both."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(read_counts() == NO_LAUNCHES, f"the bf16 cascade itself launched {read_counts()}")
+    check(out.dtype == torch.float32 and tuple(out.shape) == (N_CONTENT, SIZE, SIZE, 3),
+          f"output {out.dtype} {tuple(out.shape)}")
+    check(all(cache[lv].stats.kernel.dtype == torch.float32 for lv in cfg.relu_targets),
+          "style statistics are not f32")
+    check(bool(torch.isfinite(out).all()), "non-finite output")
+    check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output outside [0, 1]")
+
+    # The entry points on the cascade's own relu1_1-tier tensors, held
+    # against what the cascade's stock ops computed there.
+    t = throughput_path_tensors(params, content, cache, cfg)
+    w_head, b_head = t["head_w"]
+    tail = params["decoders"]["relu1_1"]["dec_conv1_1"]
+    e1 = conv_small.conv2d_reflect_fused(to_nhwc(t["img1"]), w_head, b_head, relu=True,
+                                         impl="pallas_small")
+    rgb = conv_small.conv2d_reflect_fused(to_nhwc(t["tr1"]), tail["w"], tail["b"],
+                                          impl="pallas_small")
+    e1_nchw = conv_small.conv3x3_reflect_small_nchw(t["img1"].contiguous(), w_head, b_head, True)
+    rgb_nchw = conv_small.conv3x3_reflect_small_nchw(t["tr1"].contiguous(), tail["w"], tail["b"])
+    g, mu = gram.centered_gram_cn(t["f1"].flatten(2))
+    torch.cuda.synchronize()
+    counts = read_counts()
+    # gram / (n − 1) is the covariance the cascade's own _gram_cn computes:
+    # in f32 from the upcast features, and the uncentred bf16 form the
+    # throughput cascade takes. All three against a float64 covariance: the
+    # cascade's are one cuBLAS sum over all 262,144 columns of mostly equal
+    # terms and land far from it, so they are printed and only sanity-checked.
+    n_px = t["f1"].shape[2] * t["f1"].shape[3]
+    f1 = t["f1"].flatten(2)
+    cov32, mu32 = wct_ops._gram_cn(f1.float())
+    cov16, _ = wct_ops._gram_cn(f1)
+    f64 = f1.double()
+    c64 = f64 - f64.mean(-1, keepdim=True)
+    cov64 = (c64 @ c64.mT) / (n_px - 1)
+    del f64, c64
+    entry = {
+        "conv_3to64_relu_ulp_excess": ulp_excess(to_nchw(e1), t["f1"], float(b_head.abs().max())),
+        "conv_64to3_ulp_excess": ulp_excess(to_nchw(rgb), t["out1"], float(tail["b"].abs().max())),
+        "nchw_entry_equals_nhwc_bitwise": bool(torch.equal(e1_nchw, to_nchw(e1))
+                                               and torch.equal(rgb_nchw, to_nchw(rgb))),
+        "gram_over_n_minus_1_vs_float64_rel_fro": rel_fro((g / (n_px - 1)).double(), cov64),
+        "gram_over_n_minus_1_vs_f32_gram_cn_rel_fro": rel_fro(g / (n_px - 1), cov32),
+        "f32_gram_cn_vs_float64_rel_fro": rel_fro(cov32.double(), cov64),
+        "bf16_gram_cn_vs_float64_rel_fro": rel_fro(cov16.double(), cov64),
+        "mean_rel_err": float((mu - mu32).abs().max() / mu32.abs().max()),
+    }
+    del cov64
+    # What the same covariance costs each way (after the counts were read).
+    f1_32 = f1.float()
+    entry.update(centered_gram_cn_bf16_ms=cuda_ms(lambda: gram.centered_gram_cn(f1)),
+                 centered_gram_cn_f32_ms=cuda_ms(lambda: gram.centered_gram_cn(f1_32)),
+                 gram_cn_bf16_ms=cuda_ms(lambda: wct_ops._gram_cn(f1)),
+                 gram_cn_f32_ms=cuda_ms(lambda: wct_ops._gram_cn(f1_32)))
+    del f1_32
+    check(counts == {**NO_LAUNCHES, "conv3x3_small": 2, "conv3x3_small_nchw": 2, "centered_gram": 1},
+          f"main_bf16 entry-point calls launched {counts}")
+    check(entry["conv_3to64_relu_ulp_excess"] <= 0 and entry["conv_64to3_ulp_excess"] <= 0,
+          f"conv2d_reflect_fused vs the cascade's conv: {entry}")
+    check(entry["nchw_entry_equals_nhwc_bitwise"], "the small conv's two entries differ")
+    check(entry["gram_over_n_minus_1_vs_float64_rel_fro"] <= GRAM_F64_LIMIT
+          and entry["mean_rel_err"] <= GRAM_F64_LIMIT, f"centered_gram_cn vs float64: {entry}")
+    check(entry["gram_over_n_minus_1_vs_f32_gram_cn_rel_fro"] <= 1e-2,
+          f"centered_gram_cn vs _gram_cn: {entry}")
+
+    out_a0 = cascade.stylize_microbatched(params, content[:MICROBATCH], cache, 0.0, cfg, MICROBATCH)
+    out_a1 = cascade.stylize_microbatched(params, content[:MICROBATCH], cache, 1.0, cfg, MICROBATCH)
+    a_diff = float((out_a0 - out_a1).abs().mean())
+    check(a_diff > 1e-3, f"alpha=0 and alpha=1 outputs barely differ ({a_diff:.2e})")
+    a0_err = float((out_a0 - torch.as_tensor(content[:MICROBATCH], device=DEV)).abs().mean())
+
+    single = cascade.stylize_microbatched(params, content[:1], cache, ALPHA, cfg, MICROBATCH)
+    check(torch.equal(single[0], out[0]), "bf16 output depends on the submitted batch size")
+
+    d = (out - out_f32).abs().flatten()
+    median, q99 = float(d.median()), float(torch.quantile(d, 0.99))
+    check(median < COMPOSED_MEDIAN_LIMIT, f"bf16 vs f32 cascade median {median:.3f}")
+
+    # Per level, teacher-forced on the bf16 route's running image: the bf16
+    # level against the f32 level on the same input.
+    levels = {}
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    x = batch
+    for level in cfg.relu_targets:
+        one16 = cascade.CascadeConfig(relu_targets=(level,), **THROUGHPUT)
+        one32 = cascade.CascadeConfig(relu_targets=(level,), method=cfg_f32.method)
+        y16 = cascade.stylize(params, x, cache, ALPHA, one16)
+        y32 = cascade.stylize(params, x, cache_f32, ALPHA, one32)
+        dl = (y16 - y32).abs().flatten()
+        levels[level] = {"q99": float(torch.quantile(dl, 0.99)), "median": float(dl.median())}
+        check(levels[level]["q99"] < LEVEL_Q99_LIMIT, f"{level} bf16 vs f32 q99 {levels[level]}")
+        x = y16
+
+    runs = 3
+    bf16 = lambda: cascade.stylize(params, batch, cache, ALPHA, cfg)  # noqa: E731
+    f32 = lambda: cascade.stylize(params, batch, cache_f32, ALPHA, cfg_f32)  # noqa: E731
+    turns = [cuda_ms(fn, runs) / MICROBATCH for fn in (f32, bf16, bf16, f32)]
+    ms_style = cuda_ms(lambda: cascade.precompute_style(params["encoder"], style, cfg), runs)
+
+    stages = {}
+    with torch.no_grad():
+        x = to_nchw(batch).to(cfg.dtype)
+        for level in cfg.relu_targets:
+            enc = lambda: vgg.encode_multi_nchw(params["encoder"], x, (level,), compose_pre=True)[level]  # noqa: E731
+            feats = enc()
+            wct = lambda: cascade._transform_level(feats, level, cache[level], ALPHA, cfg)  # noqa: E731
+            tr = wct()
+            dec = lambda: decoder.decode_nchw(params["decoders"][level], tr, level)  # noqa: E731
+            stages[level] = {"encode_ms": cuda_ms(enc, runs), "wct_ms": cuda_ms(wct, runs),
+                             "decode_ms": cuda_ms(dec, runs)}
+            x = dec()
+    emit({"phase": "main_bf16", "config": f"CascadeConfig({THROUGHPUT})",
+          "size": SIZE, "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA,
+          "launches": counts, "entry_points": entry, "first_run_wall_s": wall,
+          "alpha0_vs_alpha1_mean_abs": a_diff, "alpha0_vs_content_mean_abs": a0_err,
+          "batch1_vs_batch6_bitwise_equal": True, "vs_f32_median": median, "vs_f32_q99": q99,
+          "levels_vs_f32_teacher_forced": levels,
+          "ms_per_frame_b4": (turns[1] + turns[2]) / 2,
+          "ms_per_frame_b4_f32_unfused": (turns[0] + turns[3]) / 2,
+          "ms_per_frame_b4_turns_f32_bf16_bf16_f32": turns, "precompute_style_ms": ms_style,
+          "matmul_out_dtype": wct_ops.reductions.has_out_dtype(),
+          "stages_b4_ms": stages, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return counts
+
+
 def phase_cli():
     work = ROOT / "build" / "chip_smoke"
     c_dir, o_dir = work / "content", work / "out"
@@ -499,20 +851,25 @@ def phase_cli():
     for i in range(2):
         images.save_img(c_dir / f"c{i}.png", rng.random((300, 256, 3)))
     images.save_img(work / "style.png", rng.random((256, 320, 3)))
-    cmd = [sys.executable, "-m", "wct_tpu_torch.cli.stylize",
-           "--weights", "weights/bundle.npz", "--method", "newton_schulz_pallas",
-           "--content-path", str(c_dir), "--style-path", str(work / "style.png"),
-           "--out-path", str(o_dir), "--content-size", "256", "--batch-size", "2",
-           "--alpha", str(ALPHA), "--device", DEV]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
-    check(proc.returncode == 0, f"CLI failed (rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    outs = images.get_files(o_dir)
-    check(len(outs) == 2, f"CLI wrote {len(outs)} outputs, expected 2")
-    shapes = [images.get_img(p).shape for p in outs]
-    check(all(s == (300, 256, 3) for s in shapes), f"CLI output shapes {shapes}")
-    emit({"phase": "cli", "seconds": secs, "outputs": [str(Path(p).relative_to(ROOT)) for p in outs]})
+    for flags in (["--method", "newton_schulz_pallas"], ["--preset", "throughput"]):
+        for f in o_dir.iterdir():
+            f.unlink()
+        cmd = [sys.executable, "-m", "wct_tpu_torch.cli.stylize",
+               "--weights", "weights/bundle.npz", *flags,
+               "--content-path", str(c_dir), "--style-path", str(work / "style.png"),
+               "--out-path", str(o_dir), "--content-size", "256", "--batch-size", "2",
+               "--alpha", str(ALPHA), "--device", DEV]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0, f"CLI failed (rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        outs = images.get_files(o_dir)
+        check(len(outs) == 2, f"CLI wrote {len(outs)} outputs, expected 2")
+        imgs = [images.get_img(p) for p in outs]
+        check(all(i.shape == (300, 256, 3) for i in imgs), f"CLI output shapes {[i.shape for i in imgs]}")
+        check(all(np.isfinite(i).all() and i.std() > 0.01 for i in imgs), "CLI wrote a flat image")
+        emit({"phase": "cli", "flags": flags, "seconds": secs,
+              "outputs": [str(Path(p).relative_to(ROOT)) for p in outs]})
 
 
 def main() -> int:
@@ -531,15 +888,30 @@ def main() -> int:
     lines.update(phase_junction_kernels(params, content, cache, cfg, name))
     _, out_unfused = phase_main(params, content, style, cfg)
     counts = phase_main_fused(params, content, style, cfg_fused, out_unfused, cache, cfg)
+    cfg_bf16 = cascade.CascadeConfig(**THROUGHPUT)
+    cache_bf16 = cascade.precompute_style(params["encoder"], style, cfg_bf16)
+    tensors = throughput_path_tensors(params, content, cache_bf16, cfg_bf16)
+    lines.update(phase_conv_small_kernels(params, tensors, name))
+    lines.update(phase_gram_kernel(tensors, name))
+    del tensors
+    counts_bf16 = phase_main_bf16(params, content, style, cfg_bf16, out_unfused, cache, cfg)
+    counts.update({k: counts_bf16[k] for k in ("conv3x3_small", "conv3x3_small_nchw", "centered_gram")})
     phase_cli()
+    small = "wct_tpu_torch/csrc/conv3x3_small.cu"
     meta = {
         "ns_sqrtm": ("wct_tpu_torch/csrc/ns_sqrtm.cu", "wct_tpu/ops/sqrtm.py:169"),
         "encoder_head": ("wct_tpu_torch/csrc/encoder_head.cu", "wct_tpu/ops/junction_pallas.py:368"),
         "decoder_tail": ("wct_tpu_torch/csrc/decoder_tail.cu", "wct_tpu/ops/junction_pallas.py:467"),
         "junction": ("wct_tpu_torch/csrc/junction.cu", "wct_tpu/ops/junction_pallas.py:530"),
+        "conv3x3_small": (small, "wct_tpu/ops/conv_pallas.py:144, scripts/exp_nchw_conv.py:158"),
+        "conv3x3_small_nchw": (small, "scripts/exp_nchw_conv.py:74"),
+        "centered_gram": ("wct_tpu_torch/csrc/centered_gram.cu", "wct_tpu/ops/gram_pallas.py:109"),
     }
-    # ms, plain_ms and bound_ms are one microbatch's calls (5 ns_sqrtm, 1
-    # head, 3 junctions, 1 tail); launches are the fused main path's run.
+    # ms, plain_ms, bound_ms and library_ms are one microbatch's calls (5
+    # ns_sqrtm, 1 head, 3 junctions, 1 tail; the four trained small convs at
+    # [4, ·, 512, 512] through each entry; the five levels' Grams). Launches
+    # are the fused main path's run and, for the small conv (NHWC entry,
+    # NCHW entry) and the Gram, main_bf16's entry-point calls.
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": repl, "launches": counts[k],
         "max_abs_err": lines[k]["max_abs_err"], "ms": lines[k]["ms"],

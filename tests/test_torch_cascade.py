@@ -163,8 +163,10 @@ def test_config_same_value_errors_as_reference(kw):
     "kw",
     [dict(pack2_junction=True), dict(fold_transform=True),
      dict(ring_conv=True), dict(transform="adain"), dict(swap5=True), dict(wct_groups=2),
-     dict(soft_trunc=True), dict(rel_trunc=1e-3), dict(compute_dtype="bfloat16"),
-     dict(method="newton_schulz_fast"), dict(conv_precision="high")],
+     dict(soft_trunc=True), dict(rel_trunc=1e-3),
+     dict(compute_dtype="bfloat16", fuse_junction=True),
+     dict(compute_dtype="bfloat16", pack2_junction=True),
+     dict(pack2_junction=True, pack2_tail_only=True)],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
 )
 def test_config_unported_options_raise_not_implemented(kw):

@@ -11,7 +11,7 @@ import numpy as np
 import pytest
 import torch
 
-from wct_tpu_torch.ops import junction, sqrtm
+from wct_tpu_torch.ops import conv_small, gram, junction, sqrtm
 
 pytestmark = pytest.mark.cuda
 
@@ -259,3 +259,187 @@ def test_fused_cascade_matches_unfused_cascade(card):
     d = (outs[True] - outs[False]).abs().flatten()
     assert float(torch.quantile(d, 0.99)) <= 5e-3
     assert float(d.max()) <= 3e-2
+
+
+# ---- conv3x3_small (csrc/conv3x3_small.cu) against plain ----
+
+CONV_SHAPES = [(1, 8, 8), (2, 24, 40), (6, 16, 8), (1, 8, 264), (4, 512, 512)]
+CONV_CHANNELS = [(64, 64), (64, 3), (3, 64), (32, 8), (5, 17)]
+
+
+def _bf16_rand(seed, *shape, scale=1.0):
+    a = np.random.default_rng(seed).standard_normal(shape) * scale
+    return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
+
+
+def _one_ulp(got, ref):
+    """Both sum exact products in f32 and round once: at most one bf16
+    ulp apart, |Δ| ≤ 2⁻⁷·|ref| + 1e-5·max|ref|."""
+    got, ref = got.float(), ref.float()
+    return bool(((got - ref).abs() <= 2.0**-7 * ref.abs() + 1e-5 * ref.abs().max()).all())
+
+
+@pytest.mark.parametrize("relu", [False, True], ids=["linear", "relu"])
+@pytest.mark.parametrize("cin,cout", CONV_CHANNELS)
+@pytest.mark.parametrize("b,h,w", CONV_SHAPES)
+def test_conv3x3_small_kernel_matches_plain(card, b, h, w, cin, cout, relu):
+    if h == 512 and (cin, cout) not in ((64, 64), (64, 3)):
+        pytest.skip("the 512-px case runs the main path's channel counts only")
+    x = _bf16_rand(h + w + cin, b, cin, h, w).to(card)
+    wt = _bf16_rand(cout, cout, cin, 3, 3, scale=0.1).float().to(card)
+    bias = _bf16_rand(1, cout, scale=0.1).float().to(card)
+    ref = conv_small._conv3x3_small_plain(x, wt, bias, relu)
+    before = conv_small.conv3x3_small_cuda.launches
+    got = conv_small.conv3x3_reflect_small_nchw(x, wt, bias, relu)
+    x_nhwc = x.permute(0, 2, 3, 1).contiguous()
+    got_nhwc = conv_small.conv3x3_reflect_small(x_nhwc, wt, bias, relu)
+    assert conv_small.conv3x3_small_cuda.launches == before + 2
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, cout, h, w)
+    assert tuple(got_nhwc.shape) == (b, h, w, cout)
+    assert _one_ulp(got, ref)
+    # the two entries are one body: the same bits in either layout
+    assert torch.equal(got_nhwc.permute(0, 3, 1, 2), got)
+    assert torch.equal(got, conv_small.conv3x3_reflect_small_nchw(x, wt, bias, relu))
+    if b > 1:  # an image alone gives the same bits as in the batch
+        alone = conv_small.conv3x3_reflect_small_nchw(x[1:2].contiguous(), wt, bias, relu)
+        assert torch.equal(alone[0], got[1])
+    fused = conv_small.conv2d_reflect_fused(x_nhwc, wt, bias, relu, impl="pallas_small")
+    assert torch.equal(fused, got_nhwc)
+
+
+def test_conv2d_reflect_fused_routes_by_shape_and_dtype(card):
+    wt, bias = torch.randn(3, 64, 3, 3, device=card) * 0.1, torch.zeros(3, device=card)
+    before = conv_small.conv3x3_small_cuda.launches
+    x = _bf16_rand(0, 1, 8, 20, 64).to(card)  # W not a multiple of 8: the stock conv
+    out = conv_small.conv2d_reflect_fused(x, wt, bias, impl="pallas_small")
+    assert tuple(out.shape) == (1, 8, 20, 3) and out.dtype == torch.bfloat16
+    conv_small.conv2d_reflect_fused(x[:, :, :16].float(), wt, bias, impl="pallas_small")
+    conv_small.conv2d_reflect_fused(x[:, :, :16].contiguous(), wt, bias, impl="xla")
+    assert conv_small.conv3x3_small_cuda.launches == before
+    conv_small.conv2d_reflect_fused(x[:, :, :16].contiguous(), wt, bias, impl="pallas_small")
+    assert conv_small.conv3x3_small_cuda.launches == before + 1
+
+
+@pytest.mark.parametrize(
+    "case", ["float32", "cpu", "rank3", "non_contiguous", "c_above_64", "h_not_8", "w_not_8",
+             "bad_weight", "weight_on_cpu"])
+def test_conv3x3_small_kernel_rejects_bad_input_on_card(card, case):
+    x = _bf16_rand(0, 2, 64, 16, 16).to(card)
+    wt, bias = torch.randn(64, 64, 3, 3, device=card), torch.zeros(64, device=card)
+    args = {
+        "float32": (x.float(), wt, bias),
+        "cpu": (x.cpu(), wt.cpu(), bias.cpu()),
+        "rank3": (x[0], wt, bias),
+        "non_contiguous": (x.transpose(2, 3), wt, bias),
+        "c_above_64": (_bf16_rand(0, 2, 72, 16, 16).to(card), torch.randn(64, 72, 3, 3, device=card), bias),
+        "h_not_8": (x[:, :, :12].contiguous(), wt, bias),
+        "w_not_8": (x[:, :, :, :12].contiguous(), wt, bias),
+        "bad_weight": (x, wt[:, :32], bias),
+        "weight_on_cpu": (x, wt.cpu(), bias),
+    }[case]
+    before = conv_small.conv3x3_small_cuda.launches
+    with pytest.raises((TypeError, ValueError)):
+        conv_small.conv3x3_small_cuda(*args)
+    assert conv_small.conv3x3_small_cuda.launches == before
+
+
+# ---- centered_gram (csrc/centered_gram.cu) against plain ----
+
+
+def _gram_rel(a, b):
+    return float(((a - b).flatten(1).norm(dim=1) / b.flatten(1).norm(dim=1)).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("b", [1, 4, 6])
+@pytest.mark.parametrize("n,c", [(7, 32), (132, 512), (1000, 64), (4096, 128), (5000, 100),
+                                 (262144, 64), (65536, 32)])
+def test_centered_gram_kernel_matches_plain(card, n, c, b, dtype):
+    """Masked tails of N (7, 132, 1000, 5000) and of C (32, 100)
+    included. Against a float64 evaluation: Gram relative Frobenius and
+    means ≤ 1e-6. Against plain only ≤ 1e-4: its f32 sum over thousands
+    of equal terms (every zero of a ReLU map gives the same centred
+    product) rounds the same way at each step and drifts by up to 1e-5."""
+    if n == 262144 and b == 6:
+        pytest.skip("B = 1 and 4 cover the largest map")
+    rng = np.random.default_rng(n + c)
+    x = torch.from_numpy(
+        (np.maximum(rng.standard_normal((b, c, n)), 0) + 0.3).astype(np.float32)).to(dtype).to(card)
+    before = gram.centered_gram_cuda.launches
+    got, mean = gram.centered_gram_cn(x)
+    assert gram.centered_gram_cuda.launches == before + 1
+    ref, ref_mean = gram._centered_gram_plain(x)
+    torch.cuda.synchronize()
+    assert got.dtype == mean.dtype == torch.float32
+    assert tuple(got.shape) == (b, c, c) and tuple(mean.shape) == (b, c)
+    assert _gram_rel(got, ref) <= 1e-4
+    assert float((mean - ref_mean).abs().max()) <= 1e-5 * float(ref_mean.abs().max())
+    x64 = x.double()
+    mean64 = x64.mean(-1)
+    assert float((mean - mean64).abs().max()) <= 1e-6 * float(mean64.abs().max())
+    c64 = x64 - mean64[..., None]
+    assert _gram_rel(got.double(), c64 @ c64.mT) <= 1e-6
+    again, _ = gram.centered_gram_cn(x)
+    assert torch.equal(got, again)
+    alone, alone_mean = gram.centered_gram_cn(x[b - 1 :].contiguous())
+    assert torch.equal(alone[0], got[b - 1]) and torch.equal(alone_mean[0], mean[b - 1])
+
+
+def test_centered_gram_2d_entry_and_float64(card):
+    """``centered_gram(x [N, C])`` against numpy in float64: ≤ 1e-6
+    relative Frobenius, the order of a blocked f32 sum over 20,000 terms."""
+    rng = np.random.default_rng(5)
+    x = (np.maximum(rng.standard_normal((20000, 96)), 0) + 0.3).astype(np.float32)
+    got, mean = gram.centered_gram(torch.from_numpy(x).to(card))
+    x64 = x.astype(np.float64)
+    mu = x64.mean(0)
+    ref = (x64 - mu).T @ (x64 - mu)
+    assert np.linalg.norm(got.double().cpu().numpy() - ref) <= 1e-6 * np.linalg.norm(ref)
+    np.testing.assert_allclose(mean.cpu().numpy(), mu, rtol=2e-6)
+
+
+@pytest.mark.parametrize("case", ["float64", "cpu", "rank2", "non_contiguous", "empty"])
+def test_centered_gram_kernel_rejects_bad_input_on_card(card, case):
+    x = torch.rand(2, 64, 256, device=card)
+    bad = {
+        "float64": lambda: x.double(),
+        "cpu": lambda: x.cpu(),
+        "rank2": lambda: x[0],
+        "non_contiguous": lambda: x.mT,
+        "empty": lambda: x[:, :, :0],
+    }[case]()
+    before = gram.centered_gram_cuda.launches
+    with pytest.raises((TypeError, ValueError)):
+        gram.centered_gram_cuda(bad)
+    assert gram.centered_gram_cuda.launches == before
+
+
+# ---- the bf16 throughput cascade on the card ----
+
+
+def test_throughput_cascade_on_card(card):
+    """Trained bundle, 64 px, five levels: bf16 + newton_schulz_fast +
+    compose_conv0 against the f32 + eigh cascade within the reference's
+    composed gate (median < 0.2), bitwise equal alone and in a batch."""
+    from pathlib import Path
+
+    from wct_tpu_torch.models import cascade
+    from wct_tpu_torch.train import checkpoint
+
+    bundle = Path(__file__).resolve().parent.parent / "weights" / "bundle.npz"
+    params = checkpoint.params_from_numpy(checkpoint.load_pytree(bundle), card)
+    rng = np.random.default_rng(0)
+    content = rng.random((3, 64, 64, 3)).astype(np.float32)
+    style = rng.random((64, 64, 3)).astype(np.float32)
+    outs = {}
+    for name, kw in (("fid", {}), ("fast", dict(compute_dtype="bfloat16",
+                                                 method="newton_schulz_fast",
+                                                 compose_conv0=True))):
+        cfg = cascade.CascadeConfig(**kw)
+        cache = cascade.precompute_style(params["encoder"], style, cfg)
+        outs[name] = cascade.stylize_microbatched(params, content, cache, 0.8, cfg, 2)
+        alone = cascade.stylize_microbatched(params, content[2:], cache, 0.8, cfg, 2)
+        assert torch.equal(alone[0], outs[name][2])
+    assert outs["fast"].dtype == torch.float32
+    assert float((outs["fast"] - outs["fid"]).abs().median()) < 0.2

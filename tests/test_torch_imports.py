@@ -11,7 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "wct_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "wct_tpu")
+FORBIDDEN = ("jax", "jaxlib", "wct_tpu", "scripts")
 
 
 def _imported_roots(path):
@@ -35,7 +35,10 @@ def test_port_imports_without_jax_loaded():
         "import sys\n"
         "import wct_tpu_torch.models, wct_tpu_torch.cli.stylize, wct_tpu_torch.ops._build\n"
         "import wct_tpu_torch.tools.profile_convs, wct_tpu_torch.ops.junction\n"
-        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'wct_tpu')]\n"
+        "import wct_tpu_torch.tools.profile_sqrtm, wct_tpu_torch.ops.conv_small\n"
+        "import wct_tpu_torch.ops.gram\n"
+        "bad = [m for m in sys.modules\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'wct_tpu', 'scripts', 'triton')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -96,3 +99,32 @@ def test_cli_and_smoke_refuse_to_run_without_card(tmp_path):
                           text=True, timeout=120)
     assert proc.returncode != 0
     assert '"ok"' not in proc.stdout
+
+
+def test_new_kernel_modules_are_scanned():
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"wct_tpu_torch/ops/conv_small.py", "wct_tpu_torch/ops/gram.py",
+            "wct_tpu_torch/tools/profile_sqrtm.py", "chip_smoke.py"} <= names
+
+
+@pytest.mark.parametrize(
+    "kw,item",
+    [(dict(compute_dtype="bfloat16", fuse_junction=True), "item 5c"),
+     (dict(compute_dtype="bfloat16", method="newton_schulz_fast", pack2_junction=True), "item 11")],
+    ids=["bf16_fuse_junction", "pack2_junction"],
+)
+def test_options_outside_the_throughput_slice_name_their_roadmap_item(kw, item):
+    from wct_tpu_torch.models import cascade
+
+    with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
+        cascade.CascadeConfig(**kw)
+    roadmap = (ROOT / "ROADMAP.md").read_text()
+    assert f"**{item[5:]}." in roadmap or f"{item[5:]}. **" in roadmap
+
+
+def test_bf16_map_to_a_junction_kernel_names_the_roadmap_item():
+    from wct_tpu_torch.ops import junction
+
+    x = torch.zeros(1, 3, 16, 16, dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="queue 1 item 5c"):
+        junction.encoder_head_nchw(x, *([torch.zeros(1)] * 6))

@@ -113,7 +113,7 @@ def test_same_value_errors_as_reference(kw):
 @pytest.mark.parametrize(
     "kw",
     [dict(soft_trunc=True), dict(trunc_topk=8), dict(rel_trunc=1e-3), dict(groups=2),
-     dict(method="newton_schulz_fast")],
+     dict(groups=4)],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
 )
 def test_unported_modes_raise_not_implemented(kw):

@@ -1,7 +1,11 @@
 """Shared CLI plumbing: flags → CascadeConfig, device, weight loading.
 
-The flags are those of ``wct_tpu/cli/common.py`` that this slice
-supports, plus ``--device``.
+The flags are those of ``wct_tpu/cli/common.py`` that are ported so
+far, plus ``--device``. ``--preset`` keeps the JAX package's table
+except for ``pack2_junction``, a rewrite for the TPU's 128 lanes that
+the throughput preset sets there and that is not ported; and here an
+explicit ``--dtype``, ``--method`` or ``--[no-]compose-conv0`` wins
+over the preset.
 """
 
 from __future__ import annotations
@@ -30,12 +34,42 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--passes", type=int, default=1)
     p.add_argument(
         "--method",
-        choices=["eigh", "newton_schulz", "newton_schulz_pallas", "auto"],
-        default="eigh",
-        help="matrix-sqrt path for WCT: eigh, Newton-Schulz in plain "
-        "PyTorch, Newton-Schulz through the CUDA kernel "
-        "(newton_schulz_pallas, the name the JAX package gives it), or "
-        "auto (eigh up to 64 channels, Newton-Schulz above)",
+        choices=[
+            "eigh", "newton_schulz", "newton_schulz_fast",
+            "newton_schulz_pallas", "auto",
+        ],
+        default=None,
+        help="matrix-sqrt path for WCT (default eigh): eigh, Newton-Schulz "
+        "in plain PyTorch, newton_schulz_fast (the same with the cheapest "
+        "product that still reaches rel err 5e-5, the throughput choice), "
+        "Newton-Schulz through the CUDA kernel (newton_schulz_pallas, the "
+        "name the JAX package gives it), or auto (eigh up to 64 channels, "
+        "Newton-Schulz above)",
+    )
+    p.add_argument(
+        "--dtype",
+        choices=["float32", "bfloat16"],
+        default=None,
+        help="conv compute dtype (default float32; bfloat16 = throughput mode)",
+    )
+    p.add_argument(
+        "--conv-precision",
+        choices=["highest", "high"],
+        default="highest",
+        help="kept for the JAX package's command lines: both values run "
+        "float32 convs in full float32 here (cuDNN has no three-pass "
+        "mode, and TF32 would be a different result). Ignored for "
+        "--dtype bfloat16",
+    )
+    p.add_argument(
+        "--preset",
+        choices=sorted(PRESETS),
+        default=None,
+        help="quality/speed preset setting --dtype, --method and "
+        "--compose-conv0 (an explicit flag wins over the preset): "
+        "fidelity = f32 + eigh (reference-exact truncation), balanced = "
+        "f32 convs + auto solver, throughput = bf16 + fast Newton-Schulz "
+        "+ composed conv0",
     )
     p.add_argument(
         "--ns-iters",
@@ -46,8 +80,11 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument(
         "--compose-conv0",
-        action="store_true",
-        help="fold the encoder's linear 1x1 preprocessing conv0 into conv1_1",
+        action=argparse.BooleanOptionalAction,
+        default=None,
+        help="fold the encoder's linear 1x1 preprocessing conv0 into "
+        "conv1_1 (identical math, one full-resolution conv fewer). The "
+        "throughput preset enables it; --no-compose-conv0 opts out",
     )
     p.add_argument(
         "--device",
@@ -81,13 +118,25 @@ def _parse_ns_iters(spec):
     return tuple(pairs)
 
 
+# preset → (dtype, method, compose_conv0), the JAX package's table
+# (``wct_tpu/cli/common.py:198-202``) without its fold and pack2 columns.
+PRESETS = {
+    "fidelity": ("float32", "eigh", False),
+    "balanced": ("float32", "auto", False),
+    "throughput": ("bfloat16", "newton_schulz_fast", True),
+}
+
+
 def config_from_args(args: argparse.Namespace) -> cascade.CascadeConfig:
+    dtype, method, compose0 = PRESETS[args.preset or "fidelity"]
     return cascade.CascadeConfig(
         relu_targets=tuple(args.relu_targets),
         passes=args.passes,
-        method=args.method,
+        method=method if args.method is None else args.method,
+        compute_dtype=dtype if args.dtype is None else args.dtype,
+        conv_precision=args.conv_precision,
         ns_iters=_parse_ns_iters(args.ns_iters),
-        compose_conv0=args.compose_conv0,
+        compose_conv0=compose0 if args.compose_conv0 is None else args.compose_conv0,
     )
 
 

@@ -3,6 +3,9 @@
     python -m wct_tpu_torch.cli.stylize --weights weights/bundle.npz \
         --content-path c.jpg --style-path styles/ --out-path out/ \
         --alpha 0.8 --content-size 512 --method newton_schulz_pallas
+    python -m wct_tpu_torch.cli.stylize --weights weights/bundle.npz \
+        --content-path c.jpg --style-path s.jpg --out-path out/ \
+        --preset throughput
 
 Content × style cartesian product (file or directory each). Each
 style's statistics are computed once and reused for every content

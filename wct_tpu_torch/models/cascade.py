@@ -5,10 +5,13 @@ Counterpart of ``wct_tpu/models/cascade.py``: content flows relu5_1 →
 ``alpha`` against the cached style statistics, and decodes. The style
 is encoded once (``precompute_style``, one trunk sweep for all levels).
 
-Ported: the unpacked f32 WCT path, unfused (``cascade.py:526-557``,
-``645-647``, ``705-715``) and with ``fuse_junction`` (``:474-476``,
-``:545-547``, ``:609-644``, ``:648-704``), where the full-resolution
-segment between two levels runs in the kernels of ``ops/junction.py``.
+Ported: the unpacked WCT path in f32 and in bf16
+(``compute_dtype='bfloat16'``: bf16 activations through every conv,
+f32 statistics and kernels, f32 images in and out), unfused
+(``cascade.py:526-557``, ``645-647``, ``705-715``) and, in f32, with
+``fuse_junction`` (``:474-476``, ``:545-547``, ``:609-644``,
+``:648-704``), where the full-resolution segment between two levels
+runs in the kernels of ``ops/junction.py``.
 Every ``CascadeConfig`` field and check is kept, so the same illegal
 combinations raise the same ``ValueError``; options that are legal but
 not ported yet raise ``NotImplementedError`` naming the ROADMAP.md item
@@ -31,7 +34,7 @@ from wct_tpu_torch.models import vgg
 from wct_tpu_torch.ops import junction as junction_ops
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import to_nchw, to_nhwc
-from wct_tpu_torch.utils.device import params_device, resolve_device, set_fp32_numerics
+from wct_tpu_torch.utils.device import params_device, resolve_device, set_numerics
 
 DEFAULT_TARGETS = ("relu5_1", "relu4_1", "relu3_1", "relu2_1", "relu1_1")
 
@@ -48,6 +51,12 @@ class CascadeConfig:
     and the layout rewrites ``fold_transform``, ``fuse_junction``,
     ``pack2_*``, ``ring_conv`` and ``compose_conv0``. See the JAX
     package for what each does.
+
+    ``conv_precision='high'`` is, in the JAX package, a three-pass bf16
+    product that is f32-class (about 1e-6). cuDNN has no such mode, and
+    TF32 (about 1e-3) would be a different result, so here ``'high'``
+    runs the same full-f32 convs as ``'highest'``; under bf16 it is
+    ignored, as in the JAX package.
     """
 
     relu_targets: tuple[str, ...] = DEFAULT_TARGETS
@@ -178,12 +187,8 @@ class CascadeConfig:
             (self.wct_groups > 1, "wct_groups > 1", wct_ops.ITEM_TRUNC),
             (self.soft_trunc, "soft_trunc", wct_ops.ITEM_TRUNC),
             (self.rel_trunc is not None, "rel_trunc", wct_ops.ITEM_TRUNC),
-            (self.compute_dtype == "bfloat16", "compute_dtype='bfloat16'",
-             wct_ops.ITEM_THROUGHPUT),
-            (self.method == "newton_schulz_fast", "method='newton_schulz_fast'",
-             wct_ops.ITEM_THROUGHPUT),
-            (self.conv_precision == "high", "conv_precision='high'",
-             wct_ops.ITEM_THROUGHPUT),
+            (self.compute_dtype == "bfloat16" and self.fuse_junction,
+             "fuse_junction with compute_dtype='bfloat16'", wct_ops.ITEM_BF16_JUNCTION),
             (self.pack2_junction, "pack2_junction", wct_ops.ITEM_VARIANTS),
             (self.fold_transform, "fold_transform", wct_ops.ITEM_VARIANTS),
             (self.ring_conv, "ring_conv", wct_ops.ITEM_VARIANTS),
@@ -240,9 +245,10 @@ def precompute_style(
 ) -> StyleCache:
     """Encode a style image ``[H, W, 3]`` once; cache per-level statistics.
 
-    One trunk sweep (``encode_multi``) feeds every cascade level.
+    One trunk sweep (``encode_multi``) feeds every cascade level. The
+    image is cast to ``cfg.dtype``; the statistics are f32.
     """
-    set_fp32_numerics()
+    set_numerics(cfg.dtype)
     x = _as_images(style_img, encoder_params["conv1_1"]["w"].device)
     feats = vgg.encode_multi_nchw(
         encoder_params, to_nchw(x[None]).to(cfg.dtype), cfg.relu_targets,
@@ -276,9 +282,10 @@ def stylize_fn(
     Inputs whose H/W are not multiples of the deepest level's pool
     factor are reflect-padded up front (edge-padded when too small to
     reflect) and cropped back at the end, so the output has the
-    input's size.
+    input's size. Under ``compute_dtype='bfloat16'`` the image is cast
+    to bf16 on entry and the clipped result back to f32.
     """
-    set_fp32_numerics()
+    set_numerics(cfg.dtype)
     content = _as_images(content, params_device(params))
     _, h, w, _ = content.shape
     mult = max(vgg.TARGET_SCALE[t] for t in cfg.relu_targets)
@@ -351,7 +358,7 @@ def stylize_fn(
                     x = x.clamp(0.0, 1.0)
                 state_kind = "img"
     # Reference clips once before save (stylize.py:~150).
-    return to_nhwc(x.clamp(0.0, 1.0)[:, :, :h, :w])
+    return to_nhwc(x.clamp(0.0, 1.0)[:, :, :h, :w]).float()
 
 
 @torch.no_grad()
@@ -384,7 +391,7 @@ def stylize_microbatched(
     Every request runs through the same ``[microbatch, H, W, 3]``
     shape (partial chunks padded with repeats of their last frame), so
     cuDNN and cuBLAS pick the same algorithms, and with deterministic
-    cuDNN (``utils.device.set_fp32_numerics``) an image's output is
+    cuDNN (``utils.device.set_numerics``) an image's output is
     bitwise-independent of the batch it was submitted in. Batch entries
     are independent, so a slot never depends on its neighbours' data.
     """

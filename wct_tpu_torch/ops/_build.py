@@ -91,3 +91,17 @@ def load(name: str) -> ctypes.CDLL:
         if name not in _libs:
             _libs[name] = ctypes.CDLL(str(build_all([name])[name]))
         return _libs[name]
+
+
+def launch(name: str, lib: str, symbol: str, argtypes: list, args: tuple, device) -> None:
+    """Call ``symbol(*args, stream)`` of ``csrc/<lib>.cu`` on ``device``'s
+    current stream; raise if the launch is refused. Does not synchronise."""
+    import torch
+
+    fn = getattr(load(lib), symbol)
+    fn.argtypes = argtypes + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")

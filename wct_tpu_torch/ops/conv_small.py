@@ -1,0 +1,195 @@
+"""Small-channel 3×3 reflect conv in bf16: the plain version and the CUDA kernel.
+
+Counterpart of ``wct_tpu/ops/conv_pallas.py`` and of the two layout
+experiments in ``scripts/exp_nchw_conv.py``; all three TPU kernels
+compute one function:
+
+    out = bf16(act(bias + Σ_{ci,dy,dx} x[reflect(y+dy−1), reflect(x+dx−1), ci] · w[o, ci, dy, dx]))
+
+on bf16 ``x`` with at most 64 channels in and out, every bf16 × bf16
+product exact, the sum in f32 and rounded once, ``act`` ReLU or nothing.
+
+- ``conv3x3_reflect_small(x [B, H, W, C], w, b, relu)`` is the NHWC
+  form (``conv3x3_reflect_pallas``, ``conv3x3_reflect_nhwc_io``),
+  ``conv3x3_reflect_small_nchw(x [B, C, H, W], …)`` the NCHW form
+  (``conv3x3_reflect_nchw``) on the port's native layout. One kernel
+  body, ``csrc/conv3x3_small.cu``, reads and writes either layout in
+  place; its design and bound are in the source.
+- ``_conv3x3_small_plain`` is the plain PyTorch version. A CUDA tensor
+  launches the kernel or raises, a CPU tensor takes the plain version,
+  any other device raises; there is no fallback from kernel to plain.
+  ``conv3x3_small_cuda.launches`` counts the launches, and
+  ``.launches_by_layout`` counts them per entry.
+- ``conv2d_reflect_fused(x, w, b, relu, impl)`` keeps the JAX package's
+  dispatcher: ``impl='pallas_small'`` (the name the JAX package gives
+  the kernel route) sends an eligible conv to the kernel, everything
+  else and ``impl='xla'`` to the stock conv + ReLU. Eligibility is a
+  rule on shape and dtype alone.
+
+Weights are the port's OIHW ``[C_out, C_in, 3, 3]``;
+``weights_from_hwio`` turns the JAX package's ``[3, 3, C_in, C_out]``
+numpy array into that operand. No cascade configuration calls these
+functions, as none does in the JAX package.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from wct_tpu_torch.ops import _build
+from wct_tpu_torch.ops.convs import conv2d_reflect, pad_reflect_nchw, to_nchw, to_nhwc
+
+MAX_CHANNELS = 64
+# H and W must be multiples of 8: the TPU kernel's row tile
+# (``conv_pallas.py:74``), kept as the gate so both packages route the
+# same shapes; the CUDA kernel's tile rows and its 8-pixel segments use it.
+ALIGN = 8
+# Output channels up to which the kernel splits its warps over pixels
+# only, and the input channels it stages at a time in each split.
+_NARROW_MAX, _NARROW_CHUNK, _WIDE_CHUNK = 8, 4, 8
+
+
+def weights_from_hwio(w, b, device: str | torch.device = "cpu"):
+    """JAX-layout conv parameters → the port's: ``w [3, 3, C_in, C_out]``
+    (numpy, f32 or bf16-valued) → OIHW f32 tensor, ``b`` → f32 tensor."""
+    w = np.asarray(w, dtype=np.float32).transpose(3, 2, 0, 1)
+    return (torch.tensor(np.ascontiguousarray(w), device=device),
+            torch.tensor(np.asarray(b, dtype=np.float32), device=device))
+
+
+def _eligible(x: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether NHWC ``x [B, H, W, C_in]`` with OIHW ``w`` takes the kernel.
+
+    The JAX package's gate (``conv_pallas.py:116-126``) on the port's
+    layouts: 3×3, bf16, at most 64 channels in and out, H and W at
+    least 8 and multiples of 8. Its last clause, an estimate of the
+    TPU's scratch memory, is dropped: the CUDA kernel's tile does not
+    grow with W.
+    """
+    if w.dim() != 4 or w.shape[2] != 3 or w.shape[3] != 3:
+        return False
+    if x.dtype != torch.bfloat16:
+        return False
+    _, h, wd, cin = x.shape
+    cout = w.shape[0]
+    return not (
+        cin > MAX_CHANNELS or cout > MAX_CHANNELS
+        or h < ALIGN or h % ALIGN or wd < ALIGN or wd % ALIGN
+    )
+
+
+def _conv3x3_small_plain(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, relu: bool):
+    """NCHW ``x [B, C_in, H, W]`` bf16 → ``[B, C_out, H, W]`` bf16: the
+    weights rounded to bf16, both upcast, one f32 conv on the
+    reflect-padded map with the f32 bias, ReLU, one rounding."""
+    out = F.conv2d(pad_reflect_nchw(x.float()), w.to(torch.bfloat16).float(), b.float())
+    return (torch.relu(out) if relu else out).to(torch.bfloat16)
+
+
+def _check(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, nhwc: bool) -> None:
+    if x.dim() != 4:
+        raise ValueError(f"{name} needs a 4-D map, got {tuple(x.shape)}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{name} needs bfloat16, got {x.dtype}")
+    if not _eligible(x if nhwc else x.permute(0, 2, 3, 1), w):
+        raise ValueError(
+            f"{name} needs a 3×3 conv with at most {MAX_CHANNELS} channels in and out "
+            f"and H, W multiples of {ALIGN}; got x {tuple(x.shape)} "
+            f"({'NHWC' if nhwc else 'NCHW'}), w {tuple(w.shape)}"
+        )
+    cin = x.shape[3] if nhwc else x.shape[1]
+    if w.shape[1] != cin or tuple(b.shape) != (w.shape[0],):
+        raise ValueError(
+            f"{name}: w {tuple(w.shape)} and b {tuple(b.shape)} do not fit {cin} input channels"
+        )
+
+
+def _taps(w: torch.Tensor, b: torch.Tensor):
+    """OIHW weights → the kernel's f32 ``[ci_pad, tap, co_pad]`` holding
+    bf16 values, and the bias ``[co_pad]``; zero-padded to the channel
+    chunk and width of the warp split the kernel will take."""
+    cout, cin = w.shape[0], w.shape[1]
+    narrow = cout <= _NARROW_MAX
+    co_pad = _NARROW_MAX if narrow else MAX_CHANNELS
+    chunk = _NARROW_CHUNK if narrow else _WIDE_CHUNK
+    t = w.to(torch.bfloat16).float().permute(1, 2, 3, 0).reshape(cin, 9, cout)
+    t = F.pad(t, (0, co_pad - cout, 0, 0, 0, -cin % chunk))
+    return t.contiguous(), F.pad(b.float(), (0, co_pad - cout)).contiguous()
+
+
+def conv3x3_small_cuda(x, w, b, relu: bool = False, nhwc: bool = False) -> torch.Tensor:
+    """The CUDA kernel on ``x`` (bf16, contiguous, on the card):
+    ``[B, C_in, H, W]``, or ``[B, H, W, C_in]`` with ``nhwc``; the
+    output has the same layout. Launches on the current stream and does
+    not synchronise; raises on any input the kernel does not take, and
+    if the launch fails."""
+    name = "conv3x3_small_cuda"
+    _check(name, x, w, b, nhwc)
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
+    if w.device != x.device or b.device != x.device:
+        raise ValueError(f"{name} needs weights on {x.device}, got {w.device}, {b.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous tensor")
+    if not 0 < x.shape[0] <= 65535:
+        raise ValueError(f"{name} takes 1..65535 images, got {x.shape[0]}")
+    cout, cin = w.shape[0], w.shape[1]
+    bsz = x.shape[0]
+    h, wd = (x.shape[1], x.shape[2]) if nhwc else (x.shape[2], x.shape[3])
+    shape = (bsz, h, wd, cout) if nhwc else (bsz, cout, h, wd)
+    out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
+    taps, bias = _taps(w, b)
+    ptr, integer = ctypes.c_void_p, ctypes.c_int
+    _build.launch(name, "conv3x3_small", "conv3x3_small_bf16", [ptr] * 4 + [integer] * 7,
+                  (x.data_ptr(), taps.data_ptr(), bias.data_ptr(), out.data_ptr(),
+                   bsz, h, wd, cin, cout, int(relu), int(nhwc)), x.device)
+    conv3x3_small_cuda.launches += 1
+    conv3x3_small_cuda.launches_by_layout["nhwc" if nhwc else "nchw"] += 1
+    return out
+
+
+conv3x3_small_cuda.launches = 0
+conv3x3_small_cuda.launches_by_layout = {"nchw": 0, "nhwc": 0}
+
+
+def conv3x3_reflect_small_nchw(x, w, b, relu: bool = False) -> torch.Tensor:
+    """3×3 reflect conv + bias (+ ReLU) on NCHW bf16 ``x [B, C_in, H, W]``
+    → ``[B, C_out, H, W]`` bf16; the caller has checked ``_eligible``."""
+    if x.device.type == "cuda":
+        return conv3x3_small_cuda(x, w, b, relu, nhwc=False)
+    if x.device.type != "cpu":
+        raise ValueError(f"no conv3x3_small kernel for device {x.device}")
+    _check("conv3x3_reflect_small_nchw", x, w, b, nhwc=False)
+    return _conv3x3_small_plain(x, w, b, relu)
+
+
+def conv3x3_reflect_small(x, w, b, relu: bool = False) -> torch.Tensor:
+    """The same on NHWC bf16 ``x [B, H, W, C_in]`` → ``[B, H, W, C_out]``.
+    On the card the kernel reads and writes NHWC in place."""
+    if x.device.type == "cuda":
+        return conv3x3_small_cuda(x, w, b, relu, nhwc=True)
+    if x.device.type != "cpu":
+        raise ValueError(f"no conv3x3_small kernel for device {x.device}")
+    _check("conv3x3_reflect_small", x, w, b, nhwc=True)
+    return to_nhwc(_conv3x3_small_plain(to_nchw(x), w, b, relu))
+
+
+def conv2d_reflect_fused(x, w, b, relu: bool = False, impl: str = "xla") -> torch.Tensor:
+    """Reflect conv + bias (+ ReLU) on ``x [B, H, W, C_in]``, dispatching
+    to the kernel.
+
+    ``impl='pallas_small'`` routes eligible 3×3 small-channel bf16
+    convs through ``conv3x3_reflect_small``; everything else, and
+    ``impl='xla'``, uses the stock ``convs.conv2d_reflect`` followed by
+    the optional ReLU (``conv_pallas.py:205-221``). The kernel route
+    rounds once, after bias and ReLU; the stock bf16 conv rounds the
+    sum and then adds the bias, so the two agree to an ulp or two.
+    """
+    if impl == "pallas_small" and _eligible(x, w):
+        return conv3x3_reflect_small(x, w, b, relu)
+    out = conv2d_reflect(x, w, b)
+    return torch.relu(out) if relu else out

@@ -67,13 +67,23 @@ def _cudnn_ok(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> bool:
 def conv2d_reflect_nchw(
     x: torch.Tensor, w: torch.Tensor, b: torch.Tensor
 ) -> torch.Tensor:
-    """Reflect pad + VALID conv + bias; 1×1 convs get no pad."""
+    """Reflect pad + VALID conv + bias; 1×1 convs get no pad.
+
+    Weights and bias are cast to ``x``'s dtype and the output has that
+    dtype (``wct_tpu/ops/convs.py:39-63``). A bf16 conv sums exact
+    bf16 × bf16 products in f32, rounds the sum to bf16 once, and adds
+    the bf16 bias: cuDNN's bf16 conv followed by PyTorch's bias add on
+    the card, and the same three steps written out on the CPU, whose
+    own bf16 conv depends on the machine's ISA.
+    """
     kh, kw = w.shape[2], w.shape[3]
     if kh != kw:
         raise ValueError(f"square kernels only, got {kh}×{kw}")
     x = pad_reflect_nchw(x, (kh - 1) // 2)
     w, b = w.to(x.dtype), b.to(x.dtype)
     if x.device.type != "cuda":
+        if x.dtype == torch.bfloat16:
+            return F.conv2d(x.float(), w.float()).to(x.dtype) + b[:, None, None]
         return F.conv2d(x, w, b)
     key = (tuple(x.shape), tuple(w.shape), x.dtype, x.device)
     if key not in _CUDNN_OK:
@@ -120,7 +130,8 @@ def compose_1x1_into_conv(
 
     ``conv(w, b)(conv1x1(w0, b0)(x)) == conv(w', b')(x)`` with
     ``w'[:, :, y, x] = w[:, :, y, x] · W0`` and ``b' = b + Σ_taps w · b0``:
-    a per-pixel affine commutes with reflect padding. Composed in f32.
+    a per-pixel affine commutes with reflect padding. Composed in f32
+    and returned in f32; a bf16 conv casts the composed weights once.
     """
     if w0.shape[2] != 1 or w0.shape[3] != 1:
         raise ValueError("first conv must be 1×1")

@@ -1,0 +1,106 @@
+"""Channel mean and centred Gram in two passes: the plain version and the CUDA kernel.
+
+Counterpart of ``wct_tpu/ops/gram_pallas.py``. For a feature matrix
+``x [N, C]`` the WCT needs ``mean(x) [C]`` and the un-normalised
+``(x−μ)ᵀ(x−μ) [C, C]`` (the caller divides by N − 1, as
+``ops.wct._gram`` does). The kernel reads ``x`` twice, never writes a
+centred copy, and adds its partial sums in a fixed order without
+atomics, so an image's result is the same bits alone and in any batch.
+
+- ``centered_gram(x [N, C]) → (gram [C, C], mean [C])`` keeps the JAX
+  package's signature and return order.
+- ``centered_gram_cn(x [B, C, N]) → (gram [B, C, C], mean [B, C])`` is
+  the form the kernel runs on: the port's channel-major feature maps
+  (an NCHW map with its spatial dims flattened, ``ops/wct.py::_cn``),
+  batched over a grid dimension as ``vmap`` lifts the TPU kernel's
+  grid. f32 or bf16 input (bf16 is upcast as it is read), f32 results.
+- ``_centered_gram_plain`` is the plain PyTorch version and
+  ``centered_gram_cuda`` the kernel ``csrc/centered_gram.cu`` (design
+  and bound in the source). A CUDA tensor launches the kernel or
+  raises, a CPU tensor takes the plain version, any other device
+  raises. ``centered_gram_cuda.launches`` counts the launches.
+
+No cascade configuration calls these functions, as none does in the
+JAX package: ``ops.wct._gram_cn`` keeps its own contractions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from wct_tpu_torch.ops import _build, reductions
+
+# Columns of x per partial sum: at 512 px every level gives 64 to 256
+# blocks per image. The number of partials depends on N alone, never on
+# the batch, so the summation order is the image's own.
+SPLIT = 1024
+
+
+def _centered_gram_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``x [B, C, N]`` → ``(gram [B, C, C], mean [B, C])``: f32 mean, a
+    centred copy, one product per image (a batched product may block
+    its sums by the batch size, and an image's result must not depend
+    on the batch)."""
+    f32 = x.float()
+    mean = reductions.mean0(f32.mT)
+    centered = f32 - mean[..., :, None]
+    return torch.stack([c @ c.mT for c in centered]), mean
+
+
+def centered_gram_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The CUDA kernel on ``x [B, C, N]`` (f32 or bf16, contiguous, on
+    the card) → ``(gram [B, C, C], mean [B, C])`` f32. Launches on the
+    current stream and does not synchronise; raises on any input the
+    kernel does not take, and if a launch fails."""
+    name = "centered_gram_cuda"
+    if x.dim() != 3 or 0 in x.shape:
+        raise ValueError(f"{name} needs a non-empty x [B, C, N], got {tuple(x.shape)}")
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"{name} needs float32 or bfloat16, got {x.dtype}")
+    if x.device.type != "cuda":
+        raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} needs a contiguous tensor")
+    b, c, n = x.shape
+    n_splits = -(-n // SPLIT)
+    if b > 65535 or n_splits > 65535:
+        raise ValueError(f"{name} takes at most 65535 images and {65535 * SPLIT} columns")
+    mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
+    gram = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
+    work = torch.empty((b, n_splits, c, c), dtype=torch.float32, device=x.device)
+    ptr, integer = ctypes.c_void_p, ctypes.c_int
+    _build.launch(name, "centered_gram", "centered_gram_cn",
+                  [ptr, integer, ptr, ptr, ptr] + [integer] * 4,
+                  (x.data_ptr(), int(x.dtype == torch.bfloat16), mean.data_ptr(),
+                   gram.data_ptr(), work.data_ptr(), b, c, n, SPLIT), x.device)
+    centered_gram_cuda.launches += 1
+    return gram, mean
+
+
+centered_gram_cuda.launches = 0
+
+
+def centered_gram_cn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(Σ(x−μ)(x−μ)ᵀ [B, C, C], mean [B, C])`` of channel-major ``x [B, C, N]``."""
+    if x.device.type == "cuda":
+        return centered_gram_cuda(x)
+    if x.device.type != "cpu":
+        raise ValueError(f"no centered_gram kernel for device {x.device}")
+    if x.dim() != 3:
+        raise ValueError(f"centered_gram_cn needs x [B, C, N], got {tuple(x.shape)}")
+    return _centered_gram_plain(x)
+
+
+def centered_gram(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(un-normalised centred Gram [C, C], mean [C])`` of ``x [N, C]``.
+
+    The kernel runs on channel-major maps, so on the card this form
+    pays one transposed copy of ``x``; the cascade's features are
+    channel-major already and go to ``centered_gram_cn``.
+    """
+    if x.dim() != 2:
+        raise ValueError(f"centered_gram needs x [N, C], got {tuple(x.shape)}")
+    gram, mean = centered_gram_cn(x.mT.contiguous()[None])
+    return gram[0], mean[0]

@@ -26,8 +26,8 @@ count the launches.
 
 The public functions take and return ``[B, H, W, C]`` as the JAX
 package's do; the cascade calls the ``*_nchw`` forms. Weights are the
-port's OIHW. f32 only: the bf16-operand form comes with the throughput
-path.
+port's OIHW. f32 only: the bf16-operand form is ROADMAP.md queue 1
+item 5c, and until then a bf16 map raises ``TypeError``.
 """
 
 from __future__ import annotations
@@ -37,6 +37,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
+from wct_tpu_torch.ops._build import launch as _launch
 from wct_tpu_torch.ops.convs import (
     compose_1x1_into_conv,
     conv2d_reflect_nchw,
@@ -110,7 +111,10 @@ def _check_input(name: str, x: torch.Tensor, channels: int, scale: int = 1) -> N
     if x.dim() != 4 or x.shape[1] != channels:
         raise ValueError(f"{name} needs [B, {channels}, H, W], got {tuple(x.shape)}")
     if x.dtype != torch.float32:
-        raise TypeError(f"{name} needs float32, got {x.dtype}")
+        raise TypeError(
+            f"{name} needs float32, got {x.dtype}; the bf16-operand form is "
+            "not ported yet (ROADMAP.md queue 1 item 5c)"
+        )
     h, w = scale * x.shape[2], scale * x.shape[3]
     if h <= 0 or w <= 0 or h % TILE or w % TILE:
         raise ValueError(
@@ -133,18 +137,6 @@ def _check_on_card(name: str, x: torch.Tensor, weights: dict) -> None:
             raise ValueError(f"{name} needs {what} {list(shape)}, got {list(t.shape)}")
         if t.device != x.device:
             raise ValueError(f"{name} needs {what} on {x.device}, got {t.device}")
-
-
-def _launch(name: str, lib: str, symbol: str, argtypes: list, args: tuple, device) -> None:
-    from wct_tpu_torch.ops import _build
-
-    fn = getattr(_build.load(lib), symbol)
-    fn.argtypes = argtypes + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    with torch.cuda.device(device):
-        err = fn(*args, torch.cuda.current_stream(device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
 
 
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int

@@ -8,7 +8,10 @@ shape; those are XLA-specific and not ported. Here the serving layer
 deterministic mode carry the batch-independence guarantee.
 
 Each function takes optional leading batch dims: ``[..., N, C]`` for
-the column reductions and ``[..., C, C]`` for the matrix ones.
+the column reductions and ``[..., C, C]`` for the matrix ones. bf16
+inputs are summed in f32: ``sum0``/``mean0`` upcast, and ``gram0_lowp``
+and ``matmul_f32acc`` multiply the bf16 operands as they are (every
+bf16 × bf16 product is exact in f32) into an f32 result.
 """
 
 from __future__ import annotations
@@ -16,9 +19,32 @@ from __future__ import annotations
 import torch
 
 
+def has_out_dtype() -> bool:
+    """Whether this PyTorch build has ``torch.bmm(..., out_dtype=)``, the
+    bf16 × bf16 → f32 product (CUDA only where it exists)."""
+    return "dtype" in torch.ops.aten.bmm.overloads()
+
+
+def matmul_f32acc(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a [B, M, K] @ b [B, K, N]`` → f32 ``[B, M, N]``, summed in f32.
+
+    The counterpart of ``preferred_element_type=jnp.float32``. bf16
+    operands on the card go to cuBLAS as bf16 with an f32 output where
+    the build offers it (half the operand bytes); everywhere else both
+    are upcast first, which gives the same exact products.
+    """
+    if (
+        a.dtype == b.dtype == torch.bfloat16
+        and a.device.type == "cuda"
+        and has_out_dtype()
+    ):
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.bmm(a.float(), b.float())
+
+
 def sum0(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the N axis of ``[..., N, C]``."""
-    return x.float().sum(dim=-2)
+    """Sum over the N axis of ``[..., N, C]``, accumulated in f32."""
+    return x.sum(dim=-2, dtype=torch.float32)
 
 
 def mean0(x: torch.Tensor) -> torch.Tensor:
@@ -35,6 +61,12 @@ def gram0(x: torch.Tensor) -> torch.Tensor:
     """``xᵀ x`` for ``[..., N, C]``, contracting N."""
     x = x.float()
     return x.mT @ x
+
+
+def gram0_lowp(x: torch.Tensor) -> torch.Tensor:
+    """``xᵀ x`` for ``[B, N, C]`` keeping the operand dtype, f32 result
+    (``wct_tpu/ops/reductions.py:148-169``)."""
+    return matmul_f32acc(x.mT, x)
 
 
 def trace(a: torch.Tensor) -> torch.Tensor:

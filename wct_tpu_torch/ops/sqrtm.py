@@ -13,8 +13,10 @@ plays the role of the reference's 1e-5 rank truncation.
 Two versions compute it on a batch ``cov [B, C, C]``:
 
 - ``_ns_plain``: batched ``torch.matmul`` in fp32 (``sqrtm.py:116-125``).
-  It is the CPU path, the ``method='newton_schulz'`` path on any device,
-  and the reference the CUDA kernel is held against.
+  It is the CPU path, the ``method='newton_schulz'`` and
+  ``'newton_schulz_fast'`` path on any device (the same product here,
+  see ``_PRECISIONS``; ``product`` lets ``tools/profile_sqrtm.py`` time
+  the candidates), and the reference the CUDA kernel is held against.
 - ``ns_sqrtm_cuda``: the hand-written kernel ``csrc/ns_sqrtm.cu``, which
   replaces the TPU kernel ``_sqrtm_pallas``. The design and its bound
   are in the source.
@@ -38,7 +40,7 @@ DEFAULT_ITERS = 14
 DEFAULT_REG = 1e-5
 
 
-def _ns_plain(cov: torch.Tensor, num_iters: int, reg: float):
+def _ns_plain(cov: torch.Tensor, num_iters: int, reg: float, product=torch.matmul):
     c = cov.shape[-1]
     a = cov.float()
     eye = torch.eye(c, dtype=torch.float32, device=a.device)
@@ -46,8 +48,8 @@ def _ns_plain(cov: torch.Tensor, num_iters: int, reg: float):
     norm = reductions.inf_norm(a)[..., None, None]  # ‖A‖_∞ ≥ λ_max
     y, z = a / norm, eye.expand_as(a)
     for _ in range(num_iters):
-        t = 1.5 * eye - 0.5 * (z @ y)
-        y, z = y @ t, t @ z
+        t = 1.5 * eye - 0.5 * product(z, y)
+        y, z = product(y, t), product(t, z)
     sqrt_norm = torch.sqrt(norm)
     return y * sqrt_norm, z / sqrt_norm
 
@@ -104,18 +106,39 @@ def ns_sqrtm_cuda(cov: torch.Tensor, num_iters: int = DEFAULT_ITERS,
 ns_sqrtm_cuda.launches = 0
 
 
+# The values ``precision`` takes. For 'high' two candidates were
+# timed on an H100 (tools/profile_sqrtm.py, PERF.md): full-f32 cuBLAS, and
+# a split of each operand into two TF32 halves with three tensor-core
+# products. At B = 4 the split is 2.4–5.6× slower at every C from 64 to 512
+# (three times the launches of a launch-bound loop, plus the splits) and
+# misses the bar at C = 512 (residual 5.8e-5), so 'high' is the f32 product
+# too and ``newton_schulz_fast`` computes what ``newton_schulz`` computes.
+_PRECISIONS = ("highest", "high")
+
+
 def newton_schulz_sqrtm(
     cov: torch.Tensor,
     num_iters: int = DEFAULT_ITERS,
     reg: float = DEFAULT_REG,
     use_kernel: bool = False,
+    precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """(cov^{1/2}, cov^{−1/2}) for symmetric PSD ``cov [B, C, C]``.
 
     ``use_kernel`` selects the CUDA kernel (``method=
     'newton_schulz_pallas'``): a CUDA tensor launches it, a CPU tensor
-    takes the plain version, any other device raises.
+    takes the plain version, any other device raises. The kernel is
+    always full f32 and ignores ``precision``, as the TPU kernel does.
+
+    ``precision`` is the plain iteration's product: ``'highest'`` full
+    f32, ``'high'`` (``method='newton_schulz_fast'``) the cheapest
+    product that still converges to the reference's bar, relative
+    error ≤ 5e-5 at C = 512 (``wct_tpu/ops/sqrtm.py:53-58``), which
+    plain TF32 and bf16 do not reach. On an H100 that is full f32 as
+    well (see ``_PRECISIONS``).
     """
+    if precision not in _PRECISIONS:
+        raise ValueError(f"precision must be one of {_PRECISIONS}, got {precision!r}")
     if use_kernel and cov.device.type == "cuda":
         return ns_sqrtm_cuda(cov, num_iters, reg)
     if use_kernel and cov.device.type != "cpu":

@@ -16,9 +16,12 @@ layout. The cascade calls the batched ``*_cn`` forms, which take
 channel-major features ``x [B, C, N]`` (an NCHW map with its spatial
 dims flattened, no copy).
 
-Not in this slice, and raising ``NotImplementedError`` rather than
-being ignored: the soft, top-k and relative truncation modes, grouped
-WCT, bf16 features and ``method='newton_schulz_fast'``.
+bf16 features (``compute_dtype='bfloat16'``) take the uncentred Gram
+and a bf16 × bf16 apply with f32 sums; statistics and kernels are f32
+whatever the features are.
+
+Not ported yet, and raising ``NotImplementedError`` rather than being
+ignored: the soft, top-k and relative truncation modes and grouped WCT.
 """
 
 from __future__ import annotations
@@ -45,9 +48,9 @@ _AUTO_EIGH_MAX_C = 64
 
 # Where each part that is not ported yet is carried in ROADMAP.md.
 ITEM_TRUNC = "ROADMAP.md queue 1 item 4b (truncation modes and grouped WCT)"
-ITEM_THROUGHPUT = (
-    "ROADMAP.md queue 1 item 5b (throughput path: bf16, newton_schulz_fast, "
-    "conv_precision='high')"
+ITEM_BF16_JUNCTION = (
+    "ROADMAP.md queue 1 item 5c (bf16-operand form of encoder_head, junction "
+    "and decoder_tail)"
 )
 ITEM_ADAIN_SWAP = "ROADMAP.md queue 1 item 6 (AdaIN and style-swap)"
 ITEM_VARIANTS = "ROADMAP.md queue 1 item 11 (opt-in variants)"
@@ -93,13 +96,21 @@ def _sym_pow(
 
 
 def _gram_cn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """Two-pass centred Gram of ``x [..., C, N]``: ``(cov [..., C, C], mean [..., C])``.
+    """Channel covariance of ``x [B, C, N]``: ``(cov [B, C, C], mean [B, C])``, f32.
 
-    ``cov = (x−μ)(x−μ)ᵀ/(N−1)`` in float32 (reference ops.py:~80).
+    f32 features: the two-pass centred Gram ``(x−μ)(x−μ)ᵀ/(N−1)``
+    (reference ops.py:~80). bf16 features: the uncentred route
+    ``(x xᵀ − n·μμᵀ)/(n−1)`` (``wct_tpu/ops/wct.py:190-205``): every
+    bf16 × bf16 product is exact in the f32 sum and no centred copy is
+    made, where centring first and rounding back to bf16 would put the
+    rounding into the operands. μ, the outer product and the
+    subtraction stay f32.
     """
-    if x.dtype == torch.bfloat16:
-        raise not_ported("the bf16 Gram", ITEM_THROUGHPUT)
     n = x.shape[-1]
+    if x.dtype == torch.bfloat16:
+        mean = reductions.mean0(x.mT)
+        raw = reductions.gram0_lowp(x.mT)
+        return (raw - n * mean[:, :, None] * mean[:, None, :]) / (n - 1), mean
     f32 = x.float()
     mean = reductions.mean0(f32.mT)
     centered = f32 - mean[..., :, None]
@@ -108,8 +119,9 @@ def _gram_cn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _gram(f_flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``_gram_cn`` on ``f_flat [N, C]``."""
-    return _gram_cn(f_flat.mT)
+    """``_gram_cn`` on one image's ``f_flat [N, C]``."""
+    cov, mean = _gram_cn(f_flat.mT[None])
+    return cov[0], mean[0]
 
 
 def _sqrt_kernels(
@@ -136,13 +148,12 @@ def _sqrt_kernels(
             )
     if method == "eigh":
         return _sym_pow(cov, power, trunc, soft=soft, topk=topk, rel=rel)
-    if method == "newton_schulz_fast":
-        raise not_ported("method='newton_schulz_fast'", ITEM_THROUGHPUT)
-    if method in ("newton_schulz", "newton_schulz_pallas"):
+    if method in ("newton_schulz", "newton_schulz_fast", "newton_schulz_pallas"):
         sq, inv = sqrtm.newton_schulz_sqrtm(
             cov,
             num_iters=sqrtm.DEFAULT_ITERS if ns_iters is None else ns_iters,
             use_kernel=method == "newton_schulz_pallas",
+            precision="high" if method == "newton_schulz_fast" else "highest",
         )
         return inv if power < 0 else sq
     raise ValueError(f"unknown WCT method: {method!r}")
@@ -220,11 +231,19 @@ def style_stats(fs: torch.Tensor, **kw) -> StyleStats:
 
 
 def _apply_kernel(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """``x [..., N, C] @ kernel [..., C, C]`` in f32.
+    """``x [B, N, C] @ kernel [B, C, C]`` → f32.
 
     Computed as ``(kernelᵀ xᵀ)ᵀ`` so that channel-major features (the
     cascade's, where ``xᵀ`` is the contiguous NCHW map) need no copy.
+
+    bf16 ``x`` keeps both operands bf16 with an f32 sum and an f32
+    result (``wct_tpu/ops/wct.py:472-481``): the kernel is rounded
+    once per image, the products are exact, and the feature map is
+    read at half the bytes. α = 0 stays an exact identity: I rounds to
+    bf16 exactly and ``x·I`` sums single exact products.
     """
+    if x.dtype == torch.bfloat16:
+        return reductions.matmul_f32acc(kernel.to(torch.bfloat16).mT, x.mT).mT
     return (kernel.float().mT @ x.float().mT).mT
 
 

@@ -1,11 +1,12 @@
 """Time every conv of the cascade on the card: cuDNN, PyTorch's own, the port's.
 
-    python -m wct_tpu_torch.tools.profile_convs [--size 512] [--batch 4]
+    python -m wct_tpu_torch.tools.profile_convs [--size 512] [--batch 4] [--dtype bfloat16]
 
 Walks the encoder (to relu5_1) and the five decoders at the shapes the
 cascade runs them, with the trained bundle, and times each reflect conv
-with CUDA events under the port's numerics (NCHW, no TF32,
-deterministic cuDNN, no autotuning):
+with CUDA events under the port's numerics for ``--dtype`` (NCHW, no
+TF32, deterministic cuDNN, no autotuning; bf16 maps with bf16 weights
+under ``--dtype bfloat16``):
 
 - ``cudnn_ms``: cuDNN forced on;
 - ``cudnn_benchmark_ms``, ``cudnn_nondeterministic_ms``,
@@ -33,7 +34,7 @@ from wct_tpu_torch.models import decoder, vgg
 from wct_tpu_torch.ops import convs
 from wct_tpu_torch.ops.convs import conv2d_reflect_nchw, pad_reflect_nchw, upsample_nearest2_nchw
 from wct_tpu_torch.train import checkpoint
-from wct_tpu_torch.utils.device import cuda_ms, resolve_device, set_fp32_numerics
+from wct_tpu_torch.utils.device import cuda_ms, resolve_device, set_numerics
 
 ROOT = Path(__file__).resolve().parents[2]
 
@@ -55,7 +56,7 @@ def _convs(params, x):
         scale = vgg.TARGET_SCALE[target]
         c = vgg.TARGET_CHANNELS[target]
         f = torch.rand(x.shape[0], c, x.shape[2] // scale, x.shape[3] // scale,
-                       device=x.device)
+                       device=x.device).to(x.dtype)
         for spec in decoder.decoder_layers(target):
             if spec[0] == "upsample":
                 f = upsample_nearest2_nchw(f)
@@ -70,21 +71,25 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--dtype", choices=["float32", "bfloat16"], default="float32")
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
+    dtype = getattr(torch, args.dtype)
+    set_numerics(dtype)
     params = checkpoint.params_from_numpy(
         checkpoint.load_pytree(ROOT / "weights" / "bundle.npz"), dev
     )
     x = torch.as_tensor(
         np.random.default_rng(0).random((args.batch, 3, args.size, args.size), np.float32),
         device=dev,
-    )
+    ).to(dtype)
     rows = []
     with torch.no_grad():
         for where, name, inp, w, b in _convs(params, x):
-            row = {"where": where, "conv": name, "input": list(inp.shape),
+            row = {"where": where, "conv": name, "dtype": args.dtype, "input": list(inp.shape),
                    "out_c": w.shape[0], "k": w.shape[2]}
             padded = pad_reflect_nchw(inp, (w.shape[2] - 1) // 2)
+            w, b = w.to(dtype), b.to(dtype)
             conv = torch.nn.functional.conv2d
             for key, enabled in (("cudnn_ms", True), ("native_ms", False)):
                 with convs._cudnn(enabled):
@@ -95,10 +100,10 @@ def main(argv=None) -> None:
                 row["cudnn_channels_last_ms"] = cuda_ms(lambda: conv(padded_cl, w_cl, b))
                 torch.backends.cudnn.benchmark = True
                 row["cudnn_benchmark_ms"] = cuda_ms(lambda: conv(padded, w, b))
-                set_fp32_numerics()
+                set_numerics(dtype)
                 torch.backends.cudnn.deterministic = False
                 row["cudnn_nondeterministic_ms"] = cuda_ms(lambda: conv(padded, w, b))
-                set_fp32_numerics()
+                set_numerics(dtype)
             row["port_ms"] = cuda_ms(lambda: conv2d_reflect_nchw(inp, w, b))
             row["cudnn"] = convs._CUDNN_OK[(tuple(padded.shape), tuple(w.shape), padded.dtype,
                                             padded.device)]

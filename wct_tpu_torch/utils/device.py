@@ -1,4 +1,4 @@
-"""Device choice and the f32 numerics policy, in one place.
+"""Device choice and the f32 and bf16 numerics policies, in one place.
 
 The JAX package runs every f32 conv and matmul at ``Precision.HIGHEST``
 (``wct_tpu/ops/convs.py:61``, ``ops/reductions.py:66-69``). PyTorch's
@@ -11,6 +11,14 @@ It runs every request through one fixed batch shape; for that to give
 the same bits every time, cuDNN must pick the same deterministic
 algorithm for the same shape, hence ``deterministic=True`` and
 ``benchmark=False``.
+
+Under ``compute_dtype="bfloat16"`` the JAX package's products are exact
+bf16 × bf16 with an f32 accumulator (``preferred_element_type``). cuBLAS
+may by default add the partial sums of a split-K bf16 product in bf16;
+over the N = 262,144 rows of a relu1_1 Gram that would leave two
+digits. ``set_bf16_numerics`` forbids it, and keeps everything the f32
+policy sets: the Grams, the matrix square roots and the f32 cascades of
+the same process still run without TF32.
 """
 
 from __future__ import annotations
@@ -24,6 +32,20 @@ def set_fp32_numerics() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     torch.backends.cudnn.benchmark = False
+
+
+def set_bf16_numerics() -> None:
+    """The f32 policy, plus f32 accumulation in every bf16 matmul."""
+    set_fp32_numerics()
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+
+
+def set_numerics(dtype: torch.dtype) -> None:
+    """The policy for a cascade whose activations are ``dtype``."""
+    if dtype == torch.bfloat16:
+        set_bf16_numerics()
+    else:
+        set_fp32_numerics()
 
 
 def resolve_device(device: str | torch.device = "cuda") -> torch.device:
