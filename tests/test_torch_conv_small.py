@@ -177,17 +177,22 @@ def test_kernel_wrapper_needs_the_card():
 
 
 def test_taps_layout():
-    """[ci, tap, co] with bf16 values, zero-padded to the warp split's
-    chunk and width: narrow (C_out ≤ 8) 4 and 8, wide 8 and 64."""
+    """bf16 ``[k-group, co_pad, 8]``: k-group ``tap·G + g`` holds input
+    channels 8g..8g+7 of tap (dy, dx); zero-padded in channels, in
+    ``co`` to 8 (C_out ≤ 8) or 64, and to an even number of k-groups."""
     _, w, b = _case(6, (1, 8, 8), 3, 64)
     tw, tb = conv_small.weights_from_hwio(w, b)
     taps, bias = conv_small._taps(tw, tb)
-    assert taps.shape == (8, 9, 64) and bias.shape == (64,)
-    assert torch.equal(taps[2, 5, :], tw[:, 2, 1, 2].to(torch.bfloat16).float())
-    assert float(taps[3:].abs().max()) == 0.0
+    assert taps.dtype == torch.bfloat16
+    assert taps.shape == (10, 64, 8) and bias.shape == (64,)  # 9 taps × 1 group, + 1
+    assert torch.equal(taps[5, :, 2], tw[:, 2, 1, 2].to(torch.bfloat16))
+    assert float(taps[:, :, 3:].float().abs().max()) == 0.0 and float(taps[9].float().abs().max()) == 0.0
     taps, bias = conv_small._taps(tw.permute(1, 0, 2, 3)[:, :62].contiguous(), tb[:3])
-    assert taps.shape == (64, 9, 8) and bias.shape == (8,)
-    assert float(taps[62:].abs().max()) == 0.0 and float(taps[:, :, 3:].abs().max()) == 0.0
+    assert taps.shape == (72, 8, 8) and bias.shape == (8,)  # 9 taps × 8 groups
+    # tap 7 = (dy 2, dx 1), group 3 = channels 24..31
+    assert torch.equal(taps[7 * 8 + 3, :3], tw.permute(1, 0, 2, 3)[:3, 24:32, 2, 1].to(torch.bfloat16))
+    assert float(taps[7 * 8 + 7, :, 6:].float().abs().max()) == 0.0  # channels 62, 63
+    assert float(taps[:, 3:].float().abs().max()) == 0.0
     assert float(bias[3:].abs().max()) == 0.0
 
 

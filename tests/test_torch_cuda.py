@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from wct_tpu_torch.ops import conv_small, gram, junction, sqrtm
+from wct_tpu_torch.ops import wct as wct_ops
 
 pytestmark = pytest.mark.cuda
 
@@ -105,10 +106,13 @@ def test_cascade_kernel_matches_plain_cascade(card):
 
 # ---- encoder_head, junction, decoder_tail (csrc/*.cu) against plain ----
 
-# f32 sums of up to 576 terms in another order through up to four convs,
-# conv0's O(255) weights in the third: max |Δ| ≤ 1e-4 of the map's max.
+# f32-class sums of up to 576 terms in another order (3×TF32 in the
+# junction's 64→64 convs) through up to four convs, conv0's O(255) weights
+# in the third: max |Δ| ≤ 1e-4 of the map's max.
 JUNCTION_LIMIT = 1e-4
 SHAPES = [(1, 16, 16), (2, 48, 32), (3, 64, 16), (1, 16, 80), (2, 96, 144)]
+# ... and the main path's: d [4, 64, 256, 256] at every level boundary at 512 px
+JUNCTION_SHAPES = SHAPES + [(4, 512, 512)]
 
 
 @pytest.fixture(scope="module")
@@ -152,7 +156,7 @@ def test_encoder_head_kernel_matches_plain(card, weights, b, h, w):
 
 @pytest.mark.parametrize("clip", [False, True], ids=["noclip", "clip"])
 @pytest.mark.parametrize("deep", [True, False], ids=["deep", "shallow"])
-@pytest.mark.parametrize("b,h,w", SHAPES)
+@pytest.mark.parametrize("b,h,w", JUNCTION_SHAPES)
 def test_junction_kernel_matches_plain(card, weights, b, h, w, deep, clip):
     d = (_rand(h * w, b, 64, h // 2, w // 2) * 4).to(card)
     args = _on(card, weights["d1"], weights["d2"], weights["e1"], weights["e2"])
@@ -248,14 +252,16 @@ def test_fused_cascade_matches_unfused_cascade(card):
     content = rng.random((3, 64, 64, 3)).astype(np.float32)
     style = rng.random((64, 64, 3)).astype(np.float32)
     outs = {}
-    wrappers = (junction.encoder_head_cuda, junction.junction_cuda, junction.decoder_tail_cuda)
+    wrappers = (junction.encoder_head_cuda, junction.junction_cuda, junction.decoder_tail_cuda,
+                gram.centered_gram_cuda)
     for fuse in (False, True):
         cfg = cascade.CascadeConfig(method="newton_schulz_pallas", fuse_junction=fuse)
         cache = cascade.precompute_style(params["encoder"], style, cfg)
         before = [f.launches for f in wrappers]
         outs[fuse] = cascade.stylize_microbatched(params, content, cache, 0.6, cfg, 2)
         delta = [f.launches - n for f, n in zip(wrappers, before)]
-        assert delta == ([2, 6, 2] if fuse else [0, 0, 0])
+        # per chunk: 1 head, 3 junctions, 1 tail (fused), and a Gram per level
+        assert delta == ([2, 6, 2, 10] if fuse else [0, 0, 0, 10])
     d = (outs[True] - outs[False]).abs().flatten()
     assert float(torch.quantile(d, 0.99)) <= 5e-3
     assert float(d.max()) <= 3e-2
@@ -397,6 +403,28 @@ def test_centered_gram_2d_entry_and_float64(card):
     ref = (x64 - mu).T @ (x64 - mu)
     assert np.linalg.norm(got.double().cpu().numpy() - ref) <= 1e-6 * np.linalg.norm(ref)
     np.testing.assert_allclose(mean.cpu().numpy(), mu, rtol=2e-6)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_gram_cn_matches_float64_at_relu1_1(card, dtype):
+    """The cascade's own covariance at relu1_1, 512 px, batch 4: a ReLU map
+    of [4, 64, 262,144], 77 % zeros, within 1e-6 relative Frobenius of
+    float64 for f32 and bf16 features (one cuBLAS product over all N
+    columns, which ``_gram_cn`` was before, is about 1e-3 off)."""
+    rng = np.random.default_rng(1)
+    x = np.maximum(rng.standard_normal((4, 64, 262144), dtype=np.float32) - 0.7388, 0)
+    x = torch.from_numpy(x).to(dtype).to(card)
+    before = gram.centered_gram_cuda.launches
+    cov, mean = wct_ops._gram_cn(x)
+    assert gram.centered_gram_cuda.launches == before + 1
+    x64 = x.double()
+    mean64 = x64.mean(-1)
+    c64 = x64 - mean64[..., None]
+    cov64 = c64 @ c64.mT / (x.shape[-1] - 1)
+    assert _gram_rel(cov.double(), cov64) <= 1e-6
+    assert float((mean - mean64).abs().max()) <= 1e-6 * float(mean64.abs().max())
+    alone, _ = wct_ops._gram_cn(x[3:])
+    assert torch.equal(alone[0], cov[3])
 
 
 @pytest.mark.parametrize("case", ["float64", "cpu", "rank2", "non_contiguous", "empty"])

@@ -241,3 +241,34 @@ def test_no_try_around_a_launch():
     """No fallback from kernel to plain: the module has no ``try`` at all."""
     src = inspect.getsource(tjunction)
     assert "try:" not in src and "except" not in src
+
+
+def test_tf32_rounds_to_nearest_ties_away():
+    """``_tf32`` keeps 10 mantissa bits, rounding half-way cases away from
+    zero, as ``cvt.rna.tf32.f32`` does; ``hi + lo`` keeps f32's value to
+    2⁻²² relative."""
+    one = torch.tensor([1.0, -1.0])
+    half_ulp = 2.0**-11  # half of TF32's ulp at 1
+    assert torch.equal(tjunction._tf32(one * (1 + half_ulp)), one * (1 + 2.0**-10))
+    assert torch.equal(tjunction._tf32(one * (1 + half_ulp * 0.99)), one)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal(10000).astype(np.float32))
+    hi = tjunction._tf32(x)
+    assert int((hi.view(torch.int32) & 0x1FFF).abs().max()) == 0
+    lo = tjunction._tf32(x - hi)
+    assert float(((hi + lo - x).abs() / x.abs()).max()) <= 2.0**-21
+
+
+def test_tc_frags_layout():
+    """``[tap][k-step][n-tile][lane][hi0, hi1, lo0, lo1]``: lane 4g + t of
+    n-tile nt at k-step ks holds w[8nt + g, 8ks + t (+4), tap]."""
+    w = torch.from_numpy(np.random.default_rng(1).standard_normal((64, 64, 3, 3)).astype(np.float32))
+    f = tjunction._tc_frags(w)
+    assert f.shape == (9, 8, 8, 8, 4, 4) and f.is_contiguous()
+    f = f.reshape(9, 8, 8, 32, 4)
+    tap, ks, nt, g, t = 5, 3, 6, 2, 1
+    lane = 4 * g + t
+    for j in range(2):
+        v = w[8 * nt + g, 8 * ks + t + 4 * j, tap // 3, tap % 3]
+        hi, lo = f[tap, ks, nt, lane, j], f[tap, ks, nt, lane, 2 + j]
+        assert float(hi) == float(tjunction._tf32(v.reshape(1))[0])
+        assert abs(float(hi + lo - v)) <= 2.0**-21 * abs(float(v))

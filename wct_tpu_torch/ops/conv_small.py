@@ -48,9 +48,9 @@ MAX_CHANNELS = 64
 # (``conv_pallas.py:74``), kept as the gate so both packages route the
 # same shapes; the CUDA kernel's tile rows and its 8-pixel segments use it.
 ALIGN = 8
-# Output channels up to which the kernel splits its warps over pixels
-# only, and the input channels it stages at a time in each split.
-_NARROW_MAX, _NARROW_CHUNK, _WIDE_CHUNK = 8, 4, 8
+# Output channels up to which the kernel runs one 8-wide n-tile (else 8
+# n-tiles, 64), and the input channels of one k-group.
+_NARROW_MAX, _GROUP = 8, 8
 
 
 def weights_from_hwio(w, b, device: str | torch.device = "cpu"):
@@ -109,15 +109,21 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, nhwc: b
 
 
 def _taps(w: torch.Tensor, b: torch.Tensor):
-    """OIHW weights → the kernel's f32 ``[ci_pad, tap, co_pad]`` holding
-    bf16 values, and the bias ``[co_pad]``; zero-padded to the channel
-    chunk and width of the warp split the kernel will take."""
+    """OIHW weights → the kernel's bf16 ``[k-group, co_pad, 8]`` and the f32
+    bias ``[co_pad]``.
+
+    K-group ``tap · G + g`` (``G = ⌈C_in/8⌉`` groups of 8 input channels,
+    tap = 3·dy + dx) holds ``w[co, 8g:8g+8, dy, dx]``: the rows an ``mma``
+    B fragment is loaded from. Zero-padded in the input channels of the
+    last group, in ``co`` up to 8 (C_out ≤ 8) or 64, and by one k-group
+    where ``9·G`` is odd (one mma step takes two k-groups).
+    """
     cout, cin = w.shape[0], w.shape[1]
-    narrow = cout <= _NARROW_MAX
-    co_pad = _NARROW_MAX if narrow else MAX_CHANNELS
-    chunk = _NARROW_CHUNK if narrow else _WIDE_CHUNK
-    t = w.to(torch.bfloat16).float().permute(1, 2, 3, 0).reshape(cin, 9, cout)
-    t = F.pad(t, (0, co_pad - cout, 0, 0, 0, -cin % chunk))
+    co_pad = _NARROW_MAX if cout <= _NARROW_MAX else MAX_CHANNELS
+    groups = -(-cin // _GROUP)
+    t = F.pad(w.to(torch.bfloat16), (0, 0, 0, 0, 0, groups * _GROUP - cin, 0, co_pad - cout))
+    t = t.reshape(co_pad, groups, _GROUP, 9).permute(3, 1, 0, 2).reshape(9 * groups, co_pad, _GROUP)
+    t = F.pad(t, (0, 0, 0, 0, 0, (9 * groups) % 2))
     return t.contiguous(), F.pad(b.float(), (0, co_pad - cout)).contiguous()
 
 
@@ -133,10 +139,10 @@ def conv3x3_small_cuda(x, w, b, relu: bool = False, nhwc: bool = False) -> torch
         raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
     if w.device != x.device or b.device != x.device:
         raise ValueError(f"{name} needs weights on {x.device}, got {w.device}, {b.device}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} needs a contiguous tensor")
-    if not 0 < x.shape[0] <= 65535:
-        raise ValueError(f"{name} takes 1..65535 images, got {x.shape[0]}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError(f"{name} needs a contiguous tensor on a 16-byte boundary")
+    if x.shape[0] == 0:
+        raise ValueError(f"{name} needs at least one image")
     cout, cin = w.shape[0], w.shape[1]
     bsz = x.shape[0]
     h, wd = (x.shape[1], x.shape[2]) if nhwc else (x.shape[2], x.shape[3])

@@ -20,8 +20,11 @@ atomics, so an image's result is the same bits alone and in any batch.
   raises, a CPU tensor takes the plain version, any other device
   raises. ``centered_gram_cuda.launches`` counts the launches.
 
-No cascade configuration calls these functions, as none does in the
-JAX package: ``ops.wct._gram_cn`` keeps its own contractions.
+Every covariance of the cascade comes from here: ``ops.wct._gram_cn``
+divides ``centered_gram_cn``'s Gram by N − 1, for the content batch and
+for the style, at every level and on every route (the JAX package's
+cascade keeps its own contractions and reaches the TPU kernel only
+from its tests).
 """
 
 from __future__ import annotations

@@ -106,6 +106,29 @@ def _taps(w: torch.Tensor, pad_co: int | None = None) -> torch.Tensor:
     return t.contiguous()
 
 
+def _tf32(x: torch.Tensor) -> torch.Tensor:
+    """f32 → the nearest TF32 value (10 mantissa bits, ties away from
+    zero: ``cvt.rna.tf32.f32``), as f32."""
+    i = x.float().contiguous().view(torch.int32)
+    mag = ((i & 0x7FFFFFFF) + 0x1000) & 0x7FFFE000
+    return (mag | (i & -0x80000000)).view(torch.float32)
+
+
+def _tc_frags(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``[64, 64, 3, 3]`` → the junction kernel's 3×TF32 B fragments.
+
+    ``[tap][k-step][n-tile][lane][4]`` f32: lane ``4g + t`` of n-tile
+    ``nt`` at k-step ``ks`` holds ``hi`` and then ``lo`` of
+    ``w[8nt + g, 8ks + t, tap]`` and ``w[8nt + g, 8ks + t + 4, tap]``
+    (an ``mma.m16n8k8`` B fragment), with ``hi = tf32(w)`` and
+    ``lo = tf32(w − hi)``.
+    """
+    t = w.float().reshape(8, 8, 8, 2, 4, 9)  # nt, g, ks, j, t, tap
+    t = t.permute(5, 2, 0, 1, 4, 3)  # tap, ks, nt, g, t, j
+    hi = _tf32(t)
+    return torch.cat([hi, _tf32(t - hi)], dim=-1).contiguous()
+
+
 def _check_input(name: str, x: torch.Tensor, channels: int, scale: int = 1) -> None:
     """What both routes need of the map ``x [B, channels, H/scale, W/scale]``."""
     if x.dim() != 4 or x.shape[1] != channels:
@@ -194,14 +217,11 @@ def junction_cuda(d, wd1, bd1, wd2, bd2, we1, be1, w12=None, b12=None,
                         "conv1_2's bias": (b12, (CHANNELS,))})
     _check_on_card(name, d, weights)
     b, _, h, w = d.shape
-    if deep:
-        t4, c4 = _taps(w12), _f32(b12)
     shape = (b, CHANNELS, h, w) if deep else (b, CHANNELS, 2 * h, 2 * w)
     out = torch.empty(shape, dtype=torch.float32, device=d.device)
-    t1, t2, t3 = _taps(wd1), _taps(wd2, pad_co=4), _taps(we1)
+    t1, t2, t3 = _tc_frags(wd1), _taps(wd2, pad_co=4), _taps(we1)
     c1, c2, c3 = _f32(bd1), _f32(bd2), _f32(be1)
-    if not deep:  # never read by the kernel
-        t4, c4 = t1, c1
+    t4, c4 = (_tc_frags(w12), _f32(b12)) if deep else (t1, c1)  # never read when shallow
     _launch(name, "junction", "junction_f32", [_PTR] * 10 + [_INT] * 5,
             (d.data_ptr(), t1.data_ptr(), c1.data_ptr(), t2.data_ptr(), c2.data_ptr(),
              t3.data_ptr(), c3.data_ptr(), t4.data_ptr(), c4.data_ptr(), out.data_ptr(),

@@ -9,9 +9,10 @@ deterministic mode carry the batch-independence guarantee.
 
 Each function takes optional leading batch dims: ``[..., N, C]`` for
 the column reductions and ``[..., C, C]`` for the matrix ones. bf16
-inputs are summed in f32: ``sum0``/``mean0`` upcast, and ``gram0_lowp``
-and ``matmul_f32acc`` multiply the bf16 operands as they are (every
-bf16 × bf16 product is exact in f32) into an f32 result.
+inputs are summed in f32: ``sum0``/``mean0`` upcast, and
+``matmul_f32acc`` multiplies the bf16 operands as they are (every
+bf16 × bf16 product is exact in f32) into an f32 result. The Gram is
+``ops/gram.py``'s.
 """
 
 from __future__ import annotations
@@ -55,18 +56,6 @@ def mean0(x: torch.Tensor) -> torch.Tensor:
 def vecmat(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """``[..., K] @ [..., K, N] → [..., N]``."""
     return (v.float().unsqueeze(-2) @ m.float()).squeeze(-2)
-
-
-def gram0(x: torch.Tensor) -> torch.Tensor:
-    """``xᵀ x`` for ``[..., N, C]``, contracting N."""
-    x = x.float()
-    return x.mT @ x
-
-
-def gram0_lowp(x: torch.Tensor) -> torch.Tensor:
-    """``xᵀ x`` for ``[B, N, C]`` keeping the operand dtype, f32 result
-    (``wct_tpu/ops/reductions.py:148-169``)."""
-    return matmul_f32acc(x.mT, x)
 
 
 def trace(a: torch.Tensor) -> torch.Tensor:

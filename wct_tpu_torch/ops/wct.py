@@ -16,9 +16,10 @@ layout. The cascade calls the batched ``*_cn`` forms, which take
 channel-major features ``x [B, C, N]`` (an NCHW map with its spatial
 dims flattened, no copy).
 
-bf16 features (``compute_dtype='bfloat16'``) take the uncentred Gram
-and a bf16 × bf16 apply with f32 sums; statistics and kernels are f32
-whatever the features are.
+Every Gram is ``gram.centered_gram_cn``'s (the hand-written kernel on
+the card). bf16 features (``compute_dtype='bfloat16'``) take a bf16 ×
+bf16 apply with f32 sums; statistics and kernels are f32 whatever the
+features are.
 
 Not ported yet, and raising ``NotImplementedError`` rather than being
 ignored: the soft, top-k and relative truncation modes and grouped WCT.
@@ -31,7 +32,7 @@ from typing import Literal
 
 import torch
 
-from wct_tpu_torch.ops import reductions, sqrtm
+from wct_tpu_torch.ops import gram, reductions, sqrtm
 
 # Reference ops.py:~70: eps=1e-8 on the Gram diagonal, eigenvalues
 # truncated at 1e-5.
@@ -98,24 +99,21 @@ def _sym_pow(
 def _gram_cn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """Channel covariance of ``x [B, C, N]``: ``(cov [B, C, C], mean [B, C])``, f32.
 
-    f32 features: the two-pass centred Gram ``(x−μ)(x−μ)ᵀ/(N−1)``
-    (reference ops.py:~80). bf16 features: the uncentred route
-    ``(x xᵀ − n·μμᵀ)/(n−1)`` (``wct_tpu/ops/wct.py:190-205``): every
-    bf16 × bf16 product is exact in the f32 sum and no centred copy is
-    made, where centring first and rounding back to bf16 would put the
-    rounding into the operands. μ, the outer product and the
-    subtraction stay f32.
+    The two-pass centred Gram ``(x−μ)(x−μ)ᵀ/(N−1)`` (reference
+    ops.py:~80) of ``gram.centered_gram_cn``, for f32 and bf16
+    features alike. On the card that is the hand-written kernel: it
+    upcasts bf16 as it reads, centres in f32 without a centred copy,
+    and sums in blocks with compensated, fixed-order folds, where one
+    cuBLAS product over all N columns of a mostly-zero ReLU map drifts
+    by 1e-3 at relu1_1. The reference's bf16 route is the uncentred
+    ``(x xᵀ − n·μμᵀ)/(n−1)`` (``wct_tpu/ops/wct.py:190-205``), which
+    avoids rounding a centred copy back to bf16; the kernel makes no
+    such copy, so the centred form keeps that contract with less
+    cancellation.
     """
     n = x.shape[-1]
-    if x.dtype == torch.bfloat16:
-        mean = reductions.mean0(x.mT)
-        raw = reductions.gram0_lowp(x.mT)
-        return (raw - n * mean[:, :, None] * mean[:, None, :]) / (n - 1), mean
-    f32 = x.float()
-    mean = reductions.mean0(f32.mT)
-    centered = f32 - mean[..., :, None]
-    cov = reductions.gram0(centered.mT) / (n - 1)
-    return cov, mean
+    gram_sum, mean = gram.centered_gram_cn(x.contiguous())
+    return gram_sum / (n - 1), mean
 
 
 def _gram(f_flat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
