@@ -48,7 +48,8 @@ from wct_tpu_torch.ops.convs import (
 )
 from wct_tpu_torch.train import checkpoint
 from wct_tpu_torch.utils import images
-from wct_tpu_torch.utils.device import cuda_ms
+from wct_tpu_torch.tools.profile_sqrtm import sqrt_float64
+from wct_tpu_torch.utils.device import card_name, cuda_ms
 
 ROOT = Path(__file__).resolve().parent
 SIZE = 512
@@ -89,12 +90,15 @@ def tf32_peak(name: str) -> float:
     return _PEAK_TF32_PCIE if "PCIe" in name else _PEAK_TF32_SXM
 
 
-def ns_bound_ms(batch: int, c: int, iters: int, flops: float, bw: float) -> tuple[float, str]:
-    """Least time for one Newton–Schulz call: max(ops/peak, bytes/bandwidth)."""
-    ops = batch * 2 * iters * 3 * c**3  # wct_tpu/ops/sqrtm.py:208
+def ns_flops(batch: int, c: int, iters: int) -> float:
+    return batch * 2 * iters * 3 * c**3  # wct_tpu/ops/sqrtm.py:208
+
+
+def ns_bound_ms(batch: int, c: int, iters: int, tf32: float, bw: float) -> tuple[float, str]:
+    """Least time for one Newton–Schulz call: max(3 · ops / TF32 rate,
+    bytes / bandwidth); the kernel's products run in 3×TF32."""
     nbytes = batch * c * c * 4 * 3  # read A, write both outputs
-    t_ops, t_bytes = ops / flops * 1e3, nbytes / bw * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    return conv_bound_ms(3 * ns_flops(batch, c, iters), nbytes, tf32, bw)
 
 
 KERNEL_WRAPPERS = {
@@ -139,11 +143,8 @@ def rel_fro(a, b) -> float:
 def phase_device():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; needs a CUDA device")
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()
-    print(smi[0], flush=True)
+    smi = card_name()
+    print(smi, flush=True)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": name, "count": torch.cuda.device_count(),
           "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda})
@@ -163,11 +164,12 @@ def phase_build():
           "ptxas": ptxas})
 
 
-def level_covariances(params, content, cfg):
-    """The covariances the main path hands the kernel: each level's
-    content Grams (+eps·I) for one microbatch, from the trained encoder."""
+def level_covariances(params, images_nhwc, cfg):
+    """The covariances the main path hands the kernel: each level's Grams
+    (+eps·I) of a batch of images (one microbatch of content, or the
+    style), from the trained encoder."""
 
-    x = to_nchw(torch.as_tensor(content[:MICROBATCH], device=DEV))
+    x = to_nchw(torch.as_tensor(images_nhwc, device=DEV))
     covs = {}
     with torch.no_grad():
         feats = vgg.encode_multi_nchw(params["encoder"], x, cfg.relu_targets)
@@ -178,15 +180,52 @@ def level_covariances(params, content, cfg):
     return covs
 
 
-def phase_kernel(params, content, cfg, name):
-    """ns_sqrtm against its plain version at the main path's shapes."""
+def residual(sq, a64) -> float:
+    """Largest per-matrix ‖sq·sq − A‖_F / ‖A‖_F."""
+    sq64 = sq.double()
+    return rel_fro(sq64 @ sq64, a64)
+
+
+def ns_float64(a, iters: int):
+    """sqrt(A) by the same coupled iteration, every step in float64: what
+    an f32-class kernel approaches however far `iters` steps leave the
+    iteration from A^{1/2}."""
+    c = a.shape[-1]
+    a64 = a.double()
+    eye = torch.eye(c, dtype=torch.float64, device=a.device)
+    a64 = a64 + (sqrtm.DEFAULT_REG * a64.diagonal(dim1=-2, dim2=-1).sum(-1) / c)[:, None, None] * eye
+    norm = a64.abs().sum(-1).amax(-1)[:, None, None]
+    y, z = a64 / norm, eye.expand_as(a64)
+    for _ in range(iters):
+        t = 1.5 * eye - 0.5 * z @ y
+        y, z = y @ t, t @ z
+    return y * norm.sqrt()
+
+
+# Newton–Schulz against float64, relative Frobenius: the reference's bar
+# (wct_tpu/ops/sqrtm.py:53-58) against the same iteration in float64 at
+# every case, and against the float64 square root where 14 steps converge
+# (the SPD cases; on the trained level covariances both the kernel and the
+# plain f32 loop stay 2e-3 from it: floor-level eigenvalues are still
+# growing). Everywhere no more than twice the plain f32 loop's error
+# against the float64 square root.
+NS_F64_LIMIT, NS_F64_VS_PLAIN = 5e-5, 2.0
+
+
+def phase_kernel(params, content, style, cfg, name):
+    """ns_sqrtm against its plain version and a float64 square root at the
+    main path's shapes: each level's content covariances at B = 4 and the
+    style's at B = 1, and random SPD matrices at B = 16."""
 
     flops, bw = peaks(name)
+    tf32 = tf32_peak(name)
     iters, reg = sqrtm.DEFAULT_ITERS, sqrtm.DEFAULT_REG
     kernel = lambda a: sqrtm.ns_sqrtm_cuda(a, iters, reg)  # noqa: E731
     plain = lambda a: sqrtm._ns_plain(a, iters, reg)  # noqa: E731
     rows = []
-    cases = [(lvl, a) for lvl, a in level_covariances(params, content, cfg).items()]
+    cases = [(lvl, a) for lvl, a in level_covariances(params, content[:MICROBATCH], cfg).items()]
+    cases += [(f"{lvl}_style_b1", a)
+              for lvl, a in level_covariances(params, style[None], cfg).items()]
     gen = torch.Generator().manual_seed(SEED)
     for c in (64, 128, 256, 512):  # random SPD at B=16, condition number 100
         q, _ = torch.linalg.qr(torch.randn(16, c, c, generator=gen, dtype=torch.float64))
@@ -201,16 +240,41 @@ def phase_kernel(params, content, cfg, name):
         eye = torch.eye(c, device=DEV)
         inv_err = float((sq_k @ isq_k - eye).flatten(1).norm(dim=1).max())
         max_abs = max(float((sq_k - sq_p).abs().max()), float((isq_k - isq_p).abs().max()))
+        ref64, a64 = sqrt_float64(a, reg)
+        iter64 = ns_float64(a, iters)
+        again = kernel(a)
+        alone = kernel(a[-1:].contiguous())
         n = 20 if c <= 256 else 10
         ms_k, ms_p = cuda_ms(lambda: kernel(a), n), cuda_ms(lambda: plain(a), n)
-        bound, bound_by = ns_bound_ms(b, c, iters, flops, bw)
+        bound, bound_by = ns_bound_ms(b, c, iters, tf32, bw)
         row = {"phase": "kernel", "kernel": "ns_sqrtm", "case": label, "B": b, "C": c,
                "rel_err_sqrt": err_sq, "rel_err_isqrt": err_isq, "max_abs_err": max_abs,
+               "rel_err_vs_float64": rel_fro(sq_k.double(), ref64),
+               "plain_rel_err_vs_float64": rel_fro(sq_p.double(), ref64),
+               "rel_err_vs_float64_iteration": rel_fro(sq_k.double(), iter64),
+               "plain_rel_err_vs_float64_iteration": rel_fro(sq_p.double(), iter64),
+               "float64_iteration_vs_float64": rel_fro(iter64, ref64),
+               "residual": residual(sq_k, a64), "plain_residual": residual(sq_p, a64),
+               "bitwise_repeatable": all(torch.equal(x, y) for x, y in zip(again, (sq_k, isq_k))),
+               "alone_equals_batch_bitwise": torch.equal(alone[0][0], sq_k[-1])
+               and torch.equal(alone[1][0], isq_k[-1]),
                "sqrt_isqrt_minus_I_fro": inv_err, "ms": ms_k, "plain_ms": ms_p,
-               "bound_ms": bound, "bound_by": bound_by}
+               "bound_ms": bound, "bound_by": bound_by,
+               "ffma_floor_ms": ns_flops(b, c, iters) / flops * 1e3}
+        del ref64, a64, iter64
         emit(row)
         check(err_sq <= 1e-4 and err_isq <= 1e-4,
               f"ns_sqrtm vs plain at {label}: rel err {err_sq:.2e}, {err_isq:.2e} > 1e-4")
+        check(row["rel_err_vs_float64_iteration"] <= NS_F64_LIMIT,
+              f"ns_sqrtm vs the float64 iteration at {label}: "
+              f"{row['rel_err_vs_float64_iteration']:.2e} > {NS_F64_LIMIT}")
+        check(row["rel_err_vs_float64"] <= NS_F64_VS_PLAIN * row["plain_rel_err_vs_float64"]
+              and (not label.startswith("spd") or row["rel_err_vs_float64"] <= NS_F64_LIMIT),
+              f"ns_sqrtm vs float64 at {label}: {row['rel_err_vs_float64']:.2e} (plain "
+              f"{row['plain_rel_err_vs_float64']:.2e}; limits {NS_F64_LIMIT} on the SPD cases, "
+              f"{NS_F64_VS_PLAIN}x plain)")
+        check(row["bitwise_repeatable"], f"ns_sqrtm at {label}: two calls differ")
+        check(row["alone_equals_batch_bitwise"], f"ns_sqrtm at {label}: alone differs from batch")
         rows.append(row)
     # The kernel's line: one microbatch's five content levels.
     main_rows = [r for r in rows if r["case"] in cfg.relu_targets]
@@ -674,8 +738,9 @@ def phase_conv_small_kernels(params, t, name):
 def phase_gram_kernel(t, name):
     """centered_gram against its plain version: the five levels' bf16
     features of the throughput cascade at B = 4 and B = 1, their f32
-    upcast at relu1_1, and N = 7 and 132."""
+    upcast at relu1_1, and N = 7, 132 and 1000."""
     flops, bw = peaks(name)
+    tf32 = tf32_peak(name)
     gen = torch.Generator().manual_seed(SEED + 4)
     rows = []
 
@@ -693,15 +758,19 @@ def phase_gram_kernel(t, name):
                "mean_rel_err": mean_err, "max_abs_err": float((got - ref).abs().max()),
                "bitwise_repeatable": bool(torch.equal(got, again)),
                "alone_equals_batch_bitwise": bool(torch.equal(alone[0], got[-1]))}
+        row["symmetric_bitwise"] = bool(torch.equal(got, got.mT))
         x64 = x.double()
         c64 = x64 - x64.mean(-1, keepdim=True)
         g64 = c64 @ c64.mT
         row["rel_fro_err_vs_float64"] = rel_fro(got.double(), g64)
         row["plain_rel_fro_err_vs_float64"] = rel_fro(ref.double(), g64)
         del x64, c64, g64
-        ops = bsz * (2 * n * c * c + 2 * n * c)
+        # The distinct entries' products, N·C·(C+1) per image, in three
+        # TF32 passes; x read once, mean and Gram written once.
+        ops = bsz * n * c * (c + 1)
         nbytes = bsz * (n * c * x.element_size() + (c * c + c) * 4)
-        bound, by = conv_bound_ms(ops, nbytes, flops, bw)
+        bound, by = conv_bound_ms(3 * ops, nbytes, tf32, bw)
+        row["ffma_floor_ms"] = ops / flops * 1e3
         x32 = x.float()
         library = lambda: ([torch.cov(xi) * (n - 1) for xi in x32], x32.mean(-1))  # noqa: E731
         k = 10 if main else 3
@@ -716,6 +785,7 @@ def phase_gram_kernel(t, name):
               f"centered_gram vs float64 at {case}: {row['rel_fro_err_vs_float64']:.2e}")
         check(row["bitwise_repeatable"] and row["alone_equals_batch_bitwise"],
               f"centered_gram at {case}: result depends on the run or the batch")
+        check(row["symmetric_bitwise"], f"centered_gram at {case}: G differs from its transpose")
         rows.append(row)
 
     for level, feats in t["feats"].items():
@@ -914,7 +984,7 @@ def main() -> int:
     style = rng.random((SIZE, SIZE, 3)).astype(np.float32)
     cfg = cascade.CascadeConfig(method="newton_schulz_pallas")
     cfg_fused = cascade.CascadeConfig(method="newton_schulz_pallas", fuse_junction=True)
-    lines = {"ns_sqrtm": phase_kernel(params, content, cfg, name)}
+    lines = {"ns_sqrtm": phase_kernel(params, content, style, cfg, name)}
     cache = cascade.precompute_style(params["encoder"], style, cfg)
     lines.update(phase_junction_kernels(params, content, cache, cfg, name))
     _, out_unfused = phase_main(params, content, style, cfg)

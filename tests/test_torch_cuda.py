@@ -70,6 +70,32 @@ def test_ns_kernel_deterministic(card):
     assert all(torch.equal(x, y) for x, y in zip(first, second))
 
 
+@pytest.mark.parametrize("c", [17, 64, 128, 256, 512])
+def test_ns_kernel_alone_equals_batch_bitwise(card, c):
+    """Tiles and the resident route's cluster follow C alone: the last
+    matrix of a batch of 4 gives the same bits alone."""
+    a = _spd(4, c, seed=c + 1).to(card)
+    sq, isq = sqrtm.ns_sqrtm_cuda(a)
+    sq1, isq1 = sqrtm.ns_sqrtm_cuda(a[3:].contiguous())
+    assert torch.equal(sq1[0], sq[3]) and torch.equal(isq1[0], isq[3])
+
+
+def test_ns_kernel_matches_float64_at_512(card):
+    """C = 512, B = 2, condition 100: the square root within 5e-5 relative
+    Frobenius of a float64 eigendecomposition of the regularised matrix (the
+    reference's bar, wct_tpu/ops/sqrtm.py:53-58), and within twice the
+    plain f32 loop's own error."""
+    from wct_tpu_torch.tools.profile_sqrtm import sqrt_float64
+
+    a = _spd(2, 512, seed=11).to(card)
+    sq_k, _ = sqrtm.ns_sqrtm_cuda(a)
+    sq_p, _ = sqrtm._ns_plain(a, sqrtm.DEFAULT_ITERS, sqrtm.DEFAULT_REG)
+    ref, _ = sqrt_float64(a)
+    err_k, err_p = _rel(sq_k.double(), ref), _rel(sq_p.double(), ref)
+    assert err_k <= 5e-5
+    assert err_k <= 2 * err_p
+
+
 @pytest.mark.parametrize("case", ["float64", "2d", "non_square", "non_contiguous"])
 def test_ns_kernel_rejects_bad_input_on_card(card, case):
     a = _spd(2, 64, seed=0).to(card)
@@ -390,6 +416,27 @@ def test_centered_gram_kernel_matches_plain(card, n, c, b, dtype):
     assert torch.equal(got, again)
     alone, alone_mean = gram.centered_gram_cn(x[b - 1 :].contiguous())
     assert torch.equal(alone[0], got[b - 1]) and torch.equal(alone_mean[0], mean[b - 1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("n,c", [(1000, 17), (4099, 130), (777, 384), (262144, 64)])
+def test_centered_gram_kernel_symmetric_and_tile_edges(card, n, c, dtype):
+    """G is exactly its own transpose (the kernel computes the tiles on and
+    above the diagonal and mirrors them), at C past a tile edge and N not
+    a multiple of 32 (or of a 16-byte row), within 1e-6 of float64 and
+    1e-4 of plain, and the same bits alone and in a batch of 3."""
+    rng = np.random.default_rng(n * c)
+    x = torch.from_numpy(
+        (np.maximum(rng.standard_normal((3, c, n)), 0) + 0.3).astype(np.float32)).to(dtype).to(card)
+    got, mean = gram.centered_gram_cn(x)
+    ref, _ = gram._centered_gram_plain(x)
+    assert torch.equal(got, got.mT)
+    x64 = x.double()
+    c64 = x64 - x64.mean(-1, keepdim=True)
+    assert _gram_rel(got.double(), c64 @ c64.mT) <= 1e-6
+    assert _gram_rel(got, ref) <= 1e-4
+    alone, alone_mean = gram.centered_gram_cn(x[2:].contiguous())
+    assert torch.equal(alone[0], got[2]) and torch.equal(alone_mean[0], mean[2])
 
 
 def test_centered_gram_2d_entry_and_float64(card):

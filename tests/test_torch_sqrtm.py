@@ -115,3 +115,19 @@ def test_kernel_wrapper_rejects_bad_input_without_card(rng, case, exc):
     with pytest.raises(exc):
         tsqrtm.ns_sqrtm_cuda(bad)
     assert tsqrtm.ns_sqrtm_cuda.launches == 0
+
+
+@pytest.mark.parametrize("c", [17, 64, 130, 256])
+def test_plain_converges_to_float64_square_root(c):
+    """The plain version, which the card holds the kernel against, within
+    the reference's bar of 5e-5 (wct_tpu/ops/sqrtm.py:53-58) of the float64
+    eigendecomposition the card's accuracy checks use, on SPD matrices of
+    condition number 100, and that reference squares back to A + reg·tr/C·I."""
+    from wct_tpu_torch.tools.profile_sqrtm import sqrt_float64
+
+    rng = np.random.default_rng(c)
+    a = torch.from_numpy(np.stack([_spd(rng, c), _spd(rng, c)]).astype(np.float32))
+    ref, a64 = sqrt_float64(a)
+    assert float((ref @ ref - a64).norm() / a64.norm()) <= 1e-12
+    sq, _ = tsqrtm.newton_schulz_sqrtm(a)
+    assert _rel(sq.double().numpy(), ref.numpy()) <= 5e-5

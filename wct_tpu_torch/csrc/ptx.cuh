@@ -1,7 +1,9 @@
 // Thin wrappers around the PTX instructions the tensor-core kernels use
-// (conv3x3_small.cu, junction.cu): asynchronous 16-byte copies into shared
-// memory, ldmatrix, and the two mma.sync shapes (bf16 m16n8k16, tf32 m16n8k8),
-// both with f32 accumulators. sm_80 and later; the port builds for sm_90a.
+// (conv3x3_small.cu, junction.cu, ns_sqrtm.cu, centered_gram.cu):
+// asynchronous 16-byte copies into shared memory, ldmatrix, and the two
+// mma.sync shapes (bf16 m16n8k16, tf32 m16n8k8), both with f32
+// accumulators; and the 3xTF32 step built on the latter. sm_80 and later;
+// the port builds for sm_90a.
 // The copies and ldmatrix are volatile, so that they keep their place between
 // barriers; the mma's touch registers only and are left to the scheduler.
 
@@ -73,6 +75,40 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   uint32_t r;
   asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
   return r;
+}
+
+// x = hi + lo to about 22 significant bits, each half exact in tf32. The
+// rounding is to_tf32's (to nearest, ties away from zero) done on the bit
+// pattern, two integer operations instead of a conversion, which on this
+// card measured faster in the 3xTF32 kernels.
+__device__ __forceinline__ uint32_t round_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = round_tf32(x);
+  lo = round_tf32(x - __uint_as_float(hi));
+}
+
+// One k-step of 8 in 3xTF32 for one m-tile and NT n-tiles (fragments split
+// by split_tf32): part = lo*hi + hi*lo + hi*hi, from zero. The caller folds
+// part into its running sum with a rounded f32 add: the tensor cores
+// truncate their own sums, and against the whole running sum that would
+// bias it at every k-step.
+template <int NT>
+__device__ __forceinline__ void mma_3xtf32(float (&part)[NT][4], const uint32_t (&ah)[4],
+                                           const uint32_t (&al)[4], const uint32_t (&bh)[NT][2],
+                                           const uint32_t (&bl)[NT][2]) {
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) part[n][r] = 0.f;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) mma_tf32_1688(part[n], al, bh[n][0], bh[n][1]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) mma_tf32_1688(part[n], ah, bl[n][0], bl[n][1]);
+#pragma unroll
+  for (int n = 0; n < NT; ++n) mma_tf32_1688(part[n], ah, bh[n][0], bh[n][1]);
 }
 
 }  // namespace wct

@@ -4,8 +4,10 @@ Counterpart of ``wct_tpu/ops/gram_pallas.py``. For a feature matrix
 ``x [N, C]`` the WCT needs ``mean(x) [C]`` and the un-normalised
 ``(x−μ)ᵀ(x−μ) [C, C]`` (the caller divides by N − 1, as
 ``ops.wct._gram`` does). The kernel reads ``x`` twice, never writes a
-centred copy, and adds its partial sums in a fixed order without
-atomics, so an image's result is the same bits alone and in any batch.
+centred copy, computes only the tiles on and above the diagonal and
+mirrors them (the Gram is exactly symmetric), and adds its partial sums
+in a fixed order without atomics, so an image's result is the same bits
+alone and in any batch.
 
 - ``centered_gram(x [N, C]) → (gram [C, C], mean [C])`` keeps the JAX
   package's signature and return order.
@@ -35,8 +37,8 @@ import torch
 
 from wct_tpu_torch.ops import _build, reductions
 
-# Columns of x per partial sum: at 512 px every level gives 64 to 256
-# blocks per image. The number of partials depends on N alone, never on
+# Columns of x per partial sum: at 512 px every level gives 36 to 256
+# blocks per image (tiles on and above the diagonal × splits). The number of partials depends on N alone, never on
 # the batch, so the summation order is the image's own.
 SPLIT = 1024
 

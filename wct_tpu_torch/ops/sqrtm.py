@@ -18,8 +18,10 @@ Two versions compute it on a batch ``cov [B, C, C]``:
   see ``_PRECISIONS``; ``product`` lets ``tools/profile_sqrtm.py`` time
   the candidates), and the reference the CUDA kernel is held against.
 - ``ns_sqrtm_cuda``: the hand-written kernel ``csrc/ns_sqrtm.cu``, which
-  replaces the TPU kernel ``_sqrtm_pallas``. The design and its bound
-  are in the source.
+  replaces the TPU kernel ``_sqrtm_pallas``: 3xTF32 tensor-core products,
+  one launch with Y, Z and T in shared memory for C <= 128, a tiled
+  product per step above. The design, its bound, the padded edge and the
+  workspace it needs are in the source.
 
 ``newton_schulz_sqrtm(..., use_kernel=True)`` takes the kernel for a
 CUDA tensor and the plain version only for a CPU tensor; there is no
@@ -54,17 +56,6 @@ def _ns_plain(cov: torch.Tensor, num_iters: int, reg: float, product=torch.matmu
     return y * sqrt_norm, z / sqrt_norm
 
 
-def _bind(lib: ctypes.CDLL):
-    fn = lib.ns_sqrtm_f32
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def ns_sqrtm_cuda(cov: torch.Tensor, num_iters: int = DEFAULT_ITERS,
                   reg: float = DEFAULT_REG):
     """The CUDA kernel on ``cov [B, C, C]`` (f32, contiguous, on the card).
@@ -89,16 +80,17 @@ def ns_sqrtm_cuda(cov: torch.Tensor, num_iters: int = DEFAULT_ITERS,
         raise ValueError(f"num_iters must be >= 0, got {num_iters}")
     from wct_tpu_torch.ops import _build
 
-    fn = _bind(_build.load("ns_sqrtm"))
+    ptr, integer = ctypes.c_void_p, ctypes.c_int
+    workspace_floats = _build.load("ns_sqrtm").ns_sqrtm_workspace_floats
+    workspace_floats.argtypes, workspace_floats.restype = [integer, integer], ctypes.c_longlong
     sq = torch.empty_like(cov)
     isq = torch.empty_like(cov)
-    work = torch.empty(5 * b * c * c + b, dtype=torch.float32, device=cov.device)
-    with torch.cuda.device(cov.device):
-        stream = torch.cuda.current_stream(cov.device).cuda_stream
-        err = fn(cov.data_ptr(), sq.data_ptr(), isq.data_ptr(), work.data_ptr(),
-                 b, c, int(num_iters), float(reg), stream)
-    if err != 0:
-        raise RuntimeError(f"ns_sqrtm kernel launch failed: CUDA error {err}")
+    work = torch.empty(workspace_floats(b, c), dtype=torch.float32, device=cov.device)
+    _build.launch("ns_sqrtm", "ns_sqrtm", "ns_sqrtm_f32",
+                  [ptr] * 4 + [integer] * 3 + [ctypes.c_float],
+                  (cov.data_ptr(), sq.data_ptr(), isq.data_ptr(),
+                   work.data_ptr() if work.numel() else None, b, c,
+                   int(num_iters), float(reg)), cov.device)
     ns_sqrtm_cuda.launches += 1
     return sq, isq
 

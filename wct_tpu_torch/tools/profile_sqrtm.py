@@ -11,7 +11,8 @@ the plain iteration with each candidate
 - ``3xtf32``: ``matmul_3xtf32`` below, three TF32 tensor-core products,
 - ``tf32``: one TF32 product, the one that must not be used,
 
-and the hand-written kernel beside them, and prints one JSON line each:
+and the hand-written kernel beside them, after a line with the card's
+name and power limit, and prints one JSON line each:
 ms per call (CUDA events), ``rel_err`` = ‖sqrt − A^{1/2}‖_F / ‖A^{1/2}‖_F
 against a float64 eigendecomposition, and ``residual`` =
 ‖sqrt·sqrt − A‖_F / ‖A‖_F, with A the regularised matrix the iteration
@@ -26,7 +27,7 @@ import json
 import torch
 
 from wct_tpu_torch.ops import sqrtm
-from wct_tpu_torch.utils.device import cuda_ms, resolve_device
+from wct_tpu_torch.utils.device import card_name, cuda_ms, resolve_device
 
 
 def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -49,6 +50,19 @@ def matmul_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         torch.backends.cuda.matmul.allow_tf32 = prev
 
 
+def sqrt_float64(a: torch.Tensor, reg: float = sqrtm.DEFAULT_REG):
+    """``(A_reg^{1/2}, A_reg)`` in float64 for ``a [B, C, C]``: A_reg =
+    A + reg·tr(A)/C·I is the matrix the iteration solves for, and its
+    square root comes from an eigendecomposition (negative eigenvalues
+    clamped to 0)."""
+    c = a.shape[-1]
+    a64 = a.double()
+    shift = reg * a64.diagonal(dim1=-2, dim2=-1).sum(-1) / c
+    a64 = a64 + shift[:, None, None] * torch.eye(c, device=a.device, dtype=torch.float64)
+    lam, vec = torch.linalg.eigh(a64)
+    return (vec * lam.clamp_min(0).sqrt()[:, None, :]) @ vec.mT, a64
+
+
 def _matmul_tf32(a, b):
     torch.backends.cuda.matmul.allow_tf32 = True
     try:
@@ -62,6 +76,7 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     args = ap.parse_args(argv)
     dev = resolve_device("cuda")
+    print(card_name(), flush=True)
     iters, reg = sqrtm.DEFAULT_ITERS, sqrtm.DEFAULT_REG
     candidates = {
         "f32": lambda a: sqrtm._ns_plain(a, iters, reg, torch.matmul),
@@ -73,13 +88,8 @@ def main(argv=None) -> None:
     for c in (64, 128, 256, 512):
         q, _ = torch.linalg.qr(torch.randn(args.batch, c, c, generator=gen, dtype=torch.float64))
         eig = torch.logspace(0, -2, c, dtype=torch.float64)
-        a64 = ((q * eig) @ q.mT).to(dev)
-        a = a64.float().contiguous()
-        # What the iteration converges to: the square root of A + reg·tr(A)/C·I.
-        shift = reg * a64.diagonal(dim1=-2, dim2=-1).sum(-1) / c
-        a64 = a64 + shift[:, None, None] * torch.eye(c, device=dev, dtype=torch.float64)
-        lam, vec = torch.linalg.eigh(a64)
-        ref = (vec * lam.sqrt()[:, None, :]) @ vec.mT
+        a = ((q * eig) @ q.mT).float().to(dev).contiguous()
+        ref, a64 = sqrt_float64(a, reg)
         for name, fn in candidates.items():
             sq, _ = fn(a)
             torch.cuda.synchronize()

@@ -23,6 +23,8 @@ the same process still run without TF32.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -62,6 +64,16 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
         )
     set_fp32_numerics()
     return dev
+
+
+def card_name() -> str:
+    """The first card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them: the
+    line every timing of the port is written beside."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
 
 
 def cuda_ms(fn, iters: int = 5, warmup: int = 2) -> float:
