@@ -8,14 +8,17 @@ builds every CUDA kernel of the port from ``wct_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes (and
 at awkward ones), runs the five-level relu5_1 → relu1_1 cascade at
 512 px on the trained ``weights/bundle.npz`` through
-``precompute_style`` and ``stylize_microbatched`` three times: unfused
-(``CascadeConfig(method="newton_schulz_pallas")``), with
-``fuse_junction=True``, and in the bf16 throughput configuration
-(``compute_dtype="bfloat16", method="newton_schulz_fast",
+``precompute_style`` and ``stylize_microbatched`` five times: unfused
+(``CascadeConfig(method="newton_schulz_pallas")``, phase ``main``), with
+``fuse_junction=True`` (``main_fused``), in the bf16 throughput
+configuration (``compute_dtype="bfloat16", method="newton_schulz_fast",
 compose_conv0=True``, phase ``main_bf16``, which also sends the
 cascade's own relu1_1-tier tensors through the small-conv and
-centred-Gram entry points). It checks the outputs of each and one
-against the other, and runs the CLI twice.
+centred-Gram entry points), in bf16 with ``fuse_junction=True``
+(``main_bf16_fused``: the bf16 forms of the junction kernels), and in
+the default ``CascadeConfig()`` (f32, ``eigh``, ``main_eigh``). It
+checks the outputs of each and one against another, and runs the CLI
+twice.
 
 Each phase prints one JSON line. The line before the last lists each
 kernel with its launches in the main path's run and its times; the
@@ -108,21 +111,31 @@ KERNEL_WRAPPERS = {
     "decoder_tail": junction.decoder_tail_cuda,
     "centered_gram": gram.centered_gram_cuda,
 }
-NO_LAUNCHES = {**{name: 0 for name in KERNEL_WRAPPERS}, "conv3x3_small": 0, "conv3x3_small_nchw": 0}
+# The kernels with an f32 and a bf16 form, counted per form: "name" is the
+# f32 form, "name_bf16" the bf16 one.
+BY_DTYPE = ("encoder_head", "junction", "decoder_tail")
+NO_LAUNCHES = {**{name: 0 for name in KERNEL_WRAPPERS}, **{f"{n}_bf16": 0 for n in BY_DTYPE},
+               "conv3x3_small": 0, "conv3x3_small_nchw": 0}
 
 
 def reset_counts() -> None:
     for fn in KERNEL_WRAPPERS.values():
         fn.launches = 0
+    for name in BY_DTYPE:
+        KERNEL_WRAPPERS[name].launches_by_dtype = {"f32": 0, "bf16": 0}
     conv_small.conv3x3_small_cuda.launches = 0
     conv_small.conv3x3_small_cuda.launches_by_layout = {"nchw": 0, "nhwc": 0}
 
 
 def read_counts() -> dict:
-    """Launches per kernel; the small conv per entry (NHWC, NCHW)."""
+    """Launches per kernel; the junction kernels per operand type, the small
+    conv per entry (NHWC, NCHW)."""
     by_layout = conv_small.conv3x3_small_cuda.launches_by_layout
-    return {**{name: fn.launches for name, fn in KERNEL_WRAPPERS.items()},
-            "conv3x3_small": by_layout["nhwc"], "conv3x3_small_nchw": by_layout["nchw"]}
+    counts = {name: fn.launches for name, fn in KERNEL_WRAPPERS.items()}
+    for name in BY_DTYPE:
+        by_dtype = KERNEL_WRAPPERS[name].launches_by_dtype
+        counts[name], counts[f"{name}_bf16"] = by_dtype["f32"], by_dtype["bf16"]
+    return {**counts, "conv3x3_small": by_layout["nhwc"], "conv3x3_small_nchw": by_layout["nchw"]}
 
 
 def conv_bound_ms(ops: float, nbytes: float, flops: float, bw: float) -> tuple[float, str]:
@@ -360,16 +373,38 @@ def phase_main(params, content, style, cfg):
 
 
 # Kernel against plain: f32-class sums of up to 576 terms taken in another
-# order (the junction's 64->64 convs in 3xTF32), through up to four convs
-# with conv0's O(255) weights in the third. Limit on max |Δ| relative to the
-# map's largest value (measured ≤ 4.1e-5, most of it plain's own error: at
-# the relu5_1 junction plain is 3.5e-5 from a float64 evaluation, the
-# kernel 5e-6; both are printed per case).
+# order (the 64->64 convs in 3xTF32), through up to four convs with conv0's
+# O(255) weights in the third. Limit on max |Δ| relative to the map's largest
+# value (measured ≤ 5.2e-5, most of it plain's own error: at the relu5_1
+# junction plain is 3.5e-5 from a float64 evaluation, the kernel 5e-6; both
+# are printed per case).
 JUNCTION_LIMIT = 1e-4
+# The bf16 forms: every conv sums exact products in f32 and rounds once,
+# kernel and plain alike. One conv (the tail) against plain: ≥ 99 % of the
+# elements bitwise equal, all within one bf16 ulp. A chain (head, junction)
+# carries a flipped rounding forward: one flip upstream of conv0's O(255)
+# weights moves some 20 outputs beyond an ulp and one by up to about 1 % of
+# the map's max, and cuDNN's plain chain is itself up to 0.7 % of its
+# outputs beyond one ulp of a float64 evaluation of the same rule and 1.7 %
+# of the max away from it. So the chains are held to that evaluation, at
+# bars a few such events cannot break and a systematic error would: ≥ 99 %
+# bitwise, ≥ 99.5 % within one ulp (q99.5 of |Δ|), max |Δ| ≤ 2e-2 of max
+# |ref|; and to plain by the max bound.
+BF16_BITWISE, BF16_WITHIN, BF16_CHAIN_MAX = 0.99, 0.995, 2e-2
 # Fused cascade against unfused cascade of the same run: the limits the CPU
 # tests hold the two routes to (five levels of whitening amplify the
 # kernels' rounding differences ≈100×).
 FUSED_Q99_LIMIT, FUSED_MAX_LIMIT = 5e-3, 3e-2
+
+
+def bf16_agreement(got, ref) -> dict:
+    """Shares of the elements bitwise equal and within one bf16 ulp
+    (|Δ| ≤ 2⁻⁷·|ref| + 1e-5·max|ref|), and max |Δ| relative to max |ref|."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    excess = d - (2.0**-7 * ref.abs() + 1e-5 * ref.abs().max())
+    return {"bitwise": float((d == 0).float().mean()), "within_ulp": float((excess <= 0).float().mean()),
+            "rel_max": float(d.max() / ref.abs().max())}
 
 
 def head_weights(params):
@@ -405,14 +440,32 @@ def main_path_inputs(params, content, cache, cfg):
     return img.contiguous(), ds, (f, wf, bf)
 
 
+def unfused_bf16_chain(hw, tw=None):
+    """The unfused bf16 head or junction through the cascade's stock convs
+    (cuDNN bf16 on the card): a time reference for the kernels, which no
+    single library call matches."""
+    we1, be1, w12, b12 = hw
+
+    def head(x):
+        e1 = torch.relu(conv2d_reflect_nchw(x, we1, be1))
+        return F.max_pool2d(torch.relu(conv2d_reflect_nchw(e1, w12, b12)), 2)
+
+    if tw is None:
+        return head
+    wd1, bd1, wd2, bd2 = tw
+    return lambda d: head(conv2d_reflect_nchw(
+        torch.relu(conv2d_reflect_nchw(upsample_nearest2_nchw(d), wd1, bd1)), wd2, bd2))
+
+
 def phase_junction_kernels(params, content, cache, cfg, name):
-    """encoder_head, junction and decoder_tail against their plain
-    versions, at the main path's shapes and at awkward ones. The
-    junction's two 64→64 convs run on the tensor cores in 3×TF32: its
-    bound is three TF32 passes over all its FLOP (or its bytes), with the
-    fp32 FFMA floor beside it."""
+    """encoder_head, junction and decoder_tail, each form against its plain
+    version, at the main path's shapes and at awkward ones. The 64→64 convs
+    run on the tensor cores, f32 in 3×TF32, bf16 in one pass: the bound is
+    the passes over all the FLOP at the type's rate (or the bytes), with the
+    fp32 FFMA floor beside it. The bf16 cases take the f32 main path's
+    tensors rounded to bf16."""
     flops, bw = peaks(name)
-    tf32 = tf32_peak(name)
+    rates = {torch.float32: (3, tf32_peak(name)), torch.bfloat16: (1, bf16_peak(name))}
     hw = head_weights(params)
     img, ds, (f, wf, bf) = main_path_inputs(params, content, cache, cfg)
     gen = torch.Generator().manual_seed(SEED + 2)
@@ -420,80 +473,117 @@ def phase_junction_kernels(params, content, cache, cfg, name):
     rows = []
 
     def run(kernel_name, case, kernel, plain, ops, nbytes, shape, main, library=None,
-            passes_rate=None, plain64=None):
+            plain64=None, chain=True, unfused=None):
         got, ref = kernel(), plain()
         torch.cuda.synchronize()
-        check(bool(torch.isfinite(got).all()) and float(ref.abs().max()) > 0, f"{kernel_name} {case}: degenerate output")
-        err = rel_max(got, ref)
+        bf16 = got.dtype == torch.bfloat16
+        label = f"{kernel_name}_bf16" if bf16 else kernel_name
+        check(bool(torch.isfinite(got.float()).all()) and float(ref.float().abs().max()) > 0,
+              f"{label} {case}: degenerate output")
+        err = rel_max(got.float(), ref.float())
         again = kernel()
-        row = {"phase": "kernel", "kernel": kernel_name, "case": case, "shape": list(shape),
-               "main_path": main, "rel_max_err": err, "max_abs_err": float((got - ref).abs().max()),
+        row = {"phase": "kernel", "kernel": label, "case": case, "shape": list(shape),
+               "main_path": main, "rel_max_err": err,
+               "max_abs_err": float((got.float() - ref.float()).abs().max()),
                "bitwise_repeatable": bool(torch.equal(got, again))}
+        if bf16:
+            row["vs_plain"] = bf16_agreement(got, ref)
         if plain64 is not None:  # both against a float64 evaluation of the same chain
             ref64 = plain64()
-            row["rel_max_err_vs_float64"] = rel_max(got.double(), ref64)
-            row["plain_rel_max_err_vs_float64"] = rel_max(ref.double(), ref64)
+            if bf16:
+                row["vs_float64"] = bf16_agreement(got, ref64)
+                row["plain_vs_float64"] = bf16_agreement(ref, ref64)
+            else:
+                row["rel_max_err_vs_float64"] = rel_max(got.double(), ref64)
+                row["plain_rel_max_err_vs_float64"] = rel_max(ref.double(), ref64)
             del ref64
-        bound, by = conv_bound_ms(ops, nbytes, flops, bw)
-        if passes_rate is not None:  # (passes, tensor-core rate)
-            row["ffma_floor_ms"] = ops / flops * 1e3
-            bound, by = conv_bound_ms(passes_rate[0] * ops, nbytes, passes_rate[1], bw)
+        passes, rate = rates[got.dtype]
+        bound, by = conv_bound_ms(passes * ops, nbytes * got.element_size(), rate, bw)
+        row["ffma_floor_ms"] = ops / flops * 1e3
         n = 10 if main else 3  # the main path's shapes are the ones PERF.md keeps
         row.update(ms=cuda_ms(kernel, n), plain_ms=cuda_ms(plain, n // 2 + 1), bound_ms=bound,
                    bound_by=by, library_ms=cuda_ms(library, 5) if library else None)
+        if unfused is not None:
+            row["unfused_chain_ms"] = cuda_ms(unfused, 5)
         emit(row)
-        check(err <= JUNCTION_LIMIT, f"{kernel_name} vs plain at {case}: {err:.2e} > {JUNCTION_LIMIT}")
-        check(row["bitwise_repeatable"], f"{kernel_name} at {case}: two calls differ")
+        if not bf16:
+            check(err <= JUNCTION_LIMIT, f"{label} vs plain at {case}: {err:.2e} > {JUNCTION_LIMIT}")
+        elif chain:
+            v = row["vs_float64"]
+            check(v["bitwise"] >= BF16_BITWISE and v["within_ulp"] >= BF16_WITHIN
+                  and v["rel_max"] <= BF16_CHAIN_MAX and row["vs_plain"]["rel_max"] <= BF16_CHAIN_MAX,
+                  f"{label} at {case}: {row['vs_float64']} against float64 (plain "
+                  f"{row['plain_vs_float64']}), {row['vs_plain']} against plain")
+        else:
+            v = row["vs_plain"]
+            check(v["bitwise"] >= BF16_BITWISE and v["within_ulp"] == 1.0,
+                  f"{label} vs plain at {case}: {v}")
+        check(row["bitwise_repeatable"], f"{label} at {case}: two calls differ")
         rows.append(row)
 
     def head_case(case, x, main=False):
         b, _, h, w = x.shape
+        unfused = (lambda: unfused_bf16_chain(hw)(x)) if main and x.dtype == torch.bfloat16 else None
         run("encoder_head", case, lambda: junction.encoder_head_cuda(x, *hw),
             lambda: junction._encoder_head_plain(x, *hw),
-            b * 2 * h * w * 9 * (3 * 64 + 64 * 64), b * h * w * (3 + 16) * 4, x.shape, main)
+            b * 2 * h * w * 9 * (3 * 64 + 64 * 64), b * h * w * (3 + 16), x.shape, main,
+            plain64=(lambda: junction._encoder_head_plain(x, *hw, acc=torch.float64))
+            if x.dtype == torch.bfloat16 else None, unfused=unfused)
 
     def junction_case(case, d, tw, deep, clip, main=False):
         b, _, h, w = d.shape
         args = (d, *tw, *hw, deep, clip)
-        args64 = [t.double() if torch.is_tensor(t) else t for t in args]
+        if d.dtype == torch.bfloat16:
+            plain64 = lambda: junction._junction_plain(*args, acc=torch.float64)  # noqa: E731
+        else:
+            args64 = [t.double() if torch.is_tensor(t) else t for t in args]
+            plain64 = lambda: junction._junction_plain(*args64)  # noqa: E731
         px = 4 * h * w
         ops = b * 2 * px * 9 * (64 * 64 + 64 * 3 + 3 * 64 + (64 * 64 if deep else 0))
-        nbytes = b * 64 * 4 * (h * w + (h * w if deep else px))
+        nbytes = b * 64 * (h * w + (h * w if deep else px))
+        unfused = (lambda: unfused_bf16_chain(hw, tw)(d)) if main and d.dtype == torch.bfloat16 else None
         run("junction", case, lambda: junction.junction_cuda(*args),
             lambda: junction._junction_plain(*args), ops, nbytes, d.shape, main,
-            passes_rate=(3, tf32), plain64=lambda: junction._junction_plain(*args64))
+            plain64=plain64, unfused=unfused)
 
     def tail_case(case, x, w, b, clip, main=False):
         bsz, c, h, wd = x.shape
         library = None
         if main:  # the one PyTorch call that computes it: a grouped conv on the padded map
             xp = F.pad(x, (1, 1, 1, 1), mode="reflect").reshape(1, bsz * c, h + 2, wd + 2)
-            wg, bg = w.reshape(bsz * 3, c, 3, 3).contiguous(), b.reshape(-1).contiguous()
+            wg = w.reshape(bsz * 3, c, 3, 3).to(x.dtype).contiguous()
+            bg = b.reshape(-1).to(x.dtype).contiguous()
             library = lambda: F.conv2d(xp, wg, bg, groups=bsz)  # noqa: E731
         run("decoder_tail", case, lambda: junction.decoder_tail_cuda(x, w, b, clip),
             lambda: junction._decoder_tail_plain(x, w, b, clip),
-            bsz * 2 * h * wd * 9 * 64 * 3, bsz * h * wd * (64 + 3) * 4, x.shape, main, library)
+            bsz * 2 * h * wd * 9 * 64 * 3, bsz * h * wd * (64 + 3), x.shape, main, library,
+            chain=False)
 
-    head_case("main_b4_512", img, main=True)
-    for level, (d, tw) in ds.items():
-        junction_case(level, d, tw, True, False, main=True)
+    bf16 = torch.bfloat16
+    for dtype in (torch.float32, bf16):
+        head_case("main_b4_512", img.to(dtype), main=True)
+        for level, (d, tw) in ds.items():
+            junction_case(level, d.to(dtype), tw, True, False, main=True)
+        tail_case("main_b4_512", f.to(dtype), wf, bf, False, main=True)
     d3, tw = ds["relu3_1"]
-    # The same main-path map through the clip, which the cascade's last
-    # junction of a clipped run takes.
-    junction_case("relu3_1_clip", d3, tw, True, True)
-    tail_case("main_b4_512", f, wf, bf, False, main=True)
-    # The shallow variant at the main path's size, though the cascade never calls it.
-    junction_case("relu3_1_shallow", d3, tw, False, False)
+    for dtype in (torch.float32, bf16):
+        # The same main-path map through the clip, which the cascade's last
+        # junction of a clipped run takes, and the shallow variant at the main
+        # path's size, though the cascade never calls it.
+        junction_case("relu3_1_clip", d3.to(dtype), tw, True, True)
+        junction_case("relu3_1_shallow", d3.to(dtype), tw, False, False)
     for b, h, w in ((1, 16, 16), (2, 48, 32), (3, 64, 16), (1, 512, 512)):
         label = f"b{b}_{h}x{w}"
-        head_case(label, rand(b, 3, h, w))
-        for deep in (True, False):
-            for clip in (False, True):  # ×20: the rgb stage leaves [0, 1], so the clip acts
-                junction_case(f"{label}_{'deep' if deep else 'shallow'}{'_clip' if clip else ''}",
-                              rand(b, 64, h // 2, w // 2) * 20, tw, deep, clip)
-        for clip in (False, True):
-            tail_case(f"{label}{'_clip' if clip else ''}", rand(b, 64, h, w),
-                      (rand(b, 3, 64, 3, 3) - 0.5) * 0.2, rand(b, 3), clip)
+        x, dmap, fmap = rand(b, 3, h, w), rand(b, 64, h // 2, w // 2) * 20, rand(b, 64, h, w)
+        wt, bt = (rand(b, 3, 64, 3, 3) - 0.5) * 0.2, rand(b, 3)
+        for dtype in (torch.float32, bf16):
+            head_case(label, x.to(dtype))
+            for deep in (True, False):
+                for clip in (False, True):  # ×20: the rgb stage leaves [0, 1], so the clip acts
+                    junction_case(f"{label}_{'deep' if deep else 'shallow'}{'_clip' if clip else ''}",
+                                  dmap.to(dtype), tw, deep, clip)
+            for clip in (False, True):
+                tail_case(f"{label}{'_clip' if clip else ''}", fmap.to(dtype), wt, bt, clip)
 
     def line(kernel_name):
         mine = [r for r in rows if r["kernel"] == kernel_name]
@@ -509,7 +599,54 @@ def phase_junction_kernels(params, content, cache, cfg, name):
             "library_ms": None if None in lib else sum(lib),
         }
 
-    return {k: line(k) for k in ("encoder_head", "junction", "decoder_tail")}
+    return {k: line(k) for n in BY_DTYPE for k in (n, f"{n}_bf16")}
+
+
+def fused_stages(params, batch, cache, cfg) -> dict:
+    """One microbatch's stages as a fused cascade runs them, encode / WCT /
+    decode ms per level, in the configuration's operand type (a fused
+    decode stage holds the next level's head)."""
+    stages = {}
+    enc = params["encoder"]
+    head_args = tuple(enc[n][k] for n in ("conv0", "conv1_1", "conv1_2") for k in ("w", "b"))
+    with torch.no_grad():
+        x, kind = to_nchw(batch).to(cfg.dtype), "img"
+        for level in cfg.relu_targets:
+            dec_p = params["decoders"][level]
+            if level == "relu1_1":
+                encode = lambda: vgg.encode_multi_nchw(enc, x, (level,))[level]  # noqa: E731
+            elif kind == "img":
+                encode = lambda: vgg.encode_from_pool1_nchw(  # noqa: E731
+                    enc, junction.encoder_head_nchw(x, *head_args), level)
+            else:
+                encode = lambda: vgg.encode_from_pool1_nchw(enc, x, level)  # noqa: E731
+            feats = encode()
+            if level == "relu1_1":
+                conv = dec_p["dec_conv1_1"]
+
+                def wct():
+                    m, bias = wct_ops.wct_transform_cn(feats.flatten(2), cache[level].stats,
+                                                       ALPHA, method=cfg.method)
+                    return decoder.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
+
+                wf, bf = wct()
+                dec = lambda: junction.decoder_tail_nchw(feats, wf, bf)  # noqa: E731
+                kind = "img"
+            else:
+                wct = lambda: cascade._transform_level(feats, level, cache[level], ALPHA, cfg)  # noqa: E731
+                tr = wct()
+                if level == "relu2_1":
+                    dec = lambda: decoder.decode_nchw(dec_p, tr, level)  # noqa: E731
+                    kind = "img"
+                else:
+                    dec = lambda: junction.junction_nchw(  # noqa: E731
+                        decoder.decode_partial_nchw(dec_p, tr, level),
+                        *decoder.tail_weights(dec_p, level), *head_args)
+                    kind = "pooled"
+            stages[level] = {"encode_ms": cuda_ms(encode, 3), "wct_ms": cuda_ms(wct, 3),
+                             "decode_ms": cuda_ms(dec, 3)}
+            x = dec()
+    return stages
 
 
 def phase_main_fused(params, content, style, cfg, out_unfused, cache_unfused, cfg_unfused):
@@ -551,47 +688,7 @@ def phase_main_fused(params, content, style, cfg, out_unfused, cache_unfused, cf
     # In turns on one card: unfused, fused, fused, unfused.
     t = [cuda_ms(fn, runs) / MICROBATCH for fn in (unfused, fused, fused, unfused)]
 
-    # One microbatch's stages as the fused cascade runs them.
-    stages = {}
-    enc = params["encoder"]
-    head_args = tuple(enc[n][k] for n in ("conv0", "conv1_1", "conv1_2") for k in ("w", "b"))
-    with torch.no_grad():
-        x, kind = to_nchw(batch), "img"
-        for level in cfg.relu_targets:
-            dec_p = params["decoders"][level]
-            if level == "relu1_1":
-                encode = lambda: vgg.encode_multi_nchw(enc, x, (level,))[level]  # noqa: E731
-            elif kind == "img":
-                encode = lambda: vgg.encode_from_pool1_nchw(  # noqa: E731
-                    enc, junction.encoder_head_nchw(x, *head_args), level)
-            else:
-                encode = lambda: vgg.encode_from_pool1_nchw(enc, x, level)  # noqa: E731
-            feats = encode()
-            if level == "relu1_1":
-                conv = dec_p["dec_conv1_1"]
-
-                def wct():
-                    m, bias = wct_ops.wct_transform_cn(feats.flatten(2), cache[level].stats,
-                                                       ALPHA, method=cfg.method)
-                    return decoder.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
-
-                wf, bf = wct()
-                dec = lambda: junction.decoder_tail_nchw(feats, wf, bf)  # noqa: E731
-                kind = "img"
-            else:
-                wct = lambda: cascade._transform_level(feats, level, cache[level], ALPHA, cfg)  # noqa: E731
-                tr = wct()
-                if level == "relu2_1":
-                    dec = lambda: decoder.decode_nchw(dec_p, tr, level)  # noqa: E731
-                    kind = "img"
-                else:
-                    dec = lambda: junction.junction_nchw(  # noqa: E731
-                        decoder.decode_partial_nchw(dec_p, tr, level),
-                        *decoder.tail_weights(dec_p, level), *head_args)
-                    kind = "pooled"
-            stages[level] = {"encode_ms": cuda_ms(encode, 3), "wct_ms": cuda_ms(wct, 3),
-                             "decode_ms": cuda_ms(dec, 3)}
-            x = dec()
+    stages = fused_stages(params, batch, cache, cfg)
     emit({"phase": "main_fused",
           "config": "CascadeConfig(method='newton_schulz_pallas', fuse_junction=True)",
           "size": SIZE, "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA,
@@ -938,7 +1035,145 @@ def phase_main_bf16(params, content, style, cfg, out_f32, cache_f32, cfg_f32):
           "ms_per_frame_b4_turns_f32_bf16_bf16_f32": turns, "precompute_style_ms": ms_style,
           "matmul_out_dtype": wct_ops.reductions.has_out_dtype(),
           "stages_b4_ms": stages, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return counts, out, cache
+
+
+# The bf16 fused-junction configuration: bf16 activations, the plain
+# Newton–Schulz loop, and the bf16 forms of the junction kernels.
+BF16_FUSED = dict(compute_dtype="bfloat16", method="newton_schulz_fast", fuse_junction=True)
+
+
+def phase_main_bf16_fused(params, content, style, cfg, out_f32, cache_f32, cfg_f32, out_bf16,
+                          cache_bf16, cfg_bf16):
+    """The bf16 fused-junction cascade through the same entry points, held
+    to main_bf16's gates against the f32 cascade; its distance from the
+    unfused bf16 route is printed."""
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_chunks = -(-N_CONTENT // MICROBATCH)
+    expected = {**NO_LAUNCHES, "centered_gram": 5 * (1 + n_chunks), "encoder_head_bf16": n_chunks,
+                "junction_bf16": 3 * n_chunks, "decoder_tail_bf16": n_chunks}
+    check(counts == expected, f"bf16 fused main path launched {counts}, expected {expected}")
+    check(out.dtype == torch.float32 and tuple(out.shape) == (N_CONTENT, SIZE, SIZE, 3),
+          f"output {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite output")
+    check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output outside [0, 1]")
+
+    out_a0 = cascade.stylize_microbatched(params, content[:MICROBATCH], cache, 0.0, cfg, MICROBATCH)
+    out_a1 = cascade.stylize_microbatched(params, content[:MICROBATCH], cache, 1.0, cfg, MICROBATCH)
+    a_diff = float((out_a0 - out_a1).abs().mean())
+    check(a_diff > 1e-3, f"alpha=0 and alpha=1 outputs barely differ ({a_diff:.2e})")
+    a0_err = float((out_a0 - torch.as_tensor(content[:MICROBATCH], device=DEV)).abs().mean())
+
+    single = cascade.stylize_microbatched(params, content[:1], cache, ALPHA, cfg, MICROBATCH)
+    check(torch.equal(single[0], out[0]), "bf16 fused output depends on the submitted batch size")
+
+    d = (out - out_f32).abs().flatten()
+    median, q99 = float(d.median()), float(torch.quantile(d[::4], 0.99))
+    check(median < COMPOSED_MEDIAN_LIMIT, f"bf16 fused vs f32 cascade median {median:.3f}")
+    du = (out - out_bf16).abs().flatten()
+    vs_unfused = {"median": float(du.median()), "q99": float(torch.quantile(du[::4], 0.99)),
+                  "max": float(du.max())}
+
+    # Per level, teacher-forced on this route's running image: the bf16
+    # fused level (its head, or at relu1_1 its tail) against the f32 level.
+    levels = {}
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    x = batch
+    for level in cfg.relu_targets:
+        one16 = cascade.CascadeConfig(relu_targets=(level,), **BF16_FUSED)
+        one32 = cascade.CascadeConfig(relu_targets=(level,), method=cfg_f32.method)
+        y16 = cascade.stylize(params, x, cache, ALPHA, one16)
+        y32 = cascade.stylize(params, x, cache_f32, ALPHA, one32)
+        dl = (y16 - y32).abs().flatten()
+        levels[level] = {"q99": float(torch.quantile(dl, 0.99)), "median": float(dl.median())}
+        check(levels[level]["q99"] < LEVEL_Q99_LIMIT, f"{level} bf16 fused vs f32 q99 {levels[level]}")
+        x = y16
+
+    runs = 3
+    fused = lambda: cascade.stylize(params, batch, cache, ALPHA, cfg)  # noqa: E731
+    unfused = lambda: cascade.stylize(params, batch, cache_bf16, ALPHA, cfg_bf16)  # noqa: E731
+    turns = [cuda_ms(fn, runs) / MICROBATCH for fn in (unfused, fused, fused, unfused)]
+    stages = fused_stages(params, batch, cache, cfg)
+    emit({"phase": "main_bf16_fused", "config": f"CascadeConfig({BF16_FUSED})",
+          "size": SIZE, "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA,
+          "launches": counts, "first_run_wall_s": wall,
+          "alpha0_vs_alpha1_mean_abs": a_diff, "alpha0_vs_content_mean_abs": a0_err,
+          "batch1_vs_batch6_bitwise_equal": True, "vs_f32_median": median, "vs_f32_q99": q99,
+          "vs_bf16_unfused": vs_unfused, "levels_vs_f32_teacher_forced": levels,
+          "ms_per_frame_b4": (turns[1] + turns[2]) / 2,
+          "ms_per_frame_b4_bf16_unfused": (turns[0] + turns[3]) / 2,
+          "ms_per_frame_b4_turns_unfused_fused_fused_unfused": turns,
+          "stages_b4_ms": stages, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     return counts
+
+
+def phase_main_eigh(params, content, style, cache_ns, cfg_ns):
+    """The default CascadeConfig() (f32 convs, eigh): main's checks, the
+    covariances against float64 at every level, and eigh's share of each
+    level's WCT stage."""
+    cfg = cascade.CascadeConfig()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    n_chunks = -(-N_CONTENT // MICROBATCH)
+    check(counts == {**NO_LAUNCHES, "centered_gram": 5 * (1 + n_chunks)},
+          f"eigh main path launched {counts}")
+    check(tuple(out.shape) == (N_CONTENT, SIZE, SIZE, 3), f"output shape {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), "non-finite output")
+    check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, "output outside [0, 1]")
+    out_a0 = cascade.stylize_microbatched(params, content[:MICROBATCH], cache, 0.0, cfg, MICROBATCH)
+    out_a1 = cascade.stylize_microbatched(params, content[:MICROBATCH], cache, 1.0, cfg, MICROBATCH)
+    a_diff = float((out_a0 - out_a1).abs().mean())
+    check(a_diff > 1e-3, f"alpha=0 and alpha=1 outputs barely differ ({a_diff:.2e})")
+    single = cascade.stylize_microbatched(params, content[:1], cache, ALPHA, cfg, MICROBATCH)
+    check(torch.equal(single[0], out[0]), "eigh output depends on the submitted batch size")
+
+    # Per level, on the route's own running image: the covariance against
+    # float64, and the WCT stage with the eigh inside it.
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    levels = {}
+    runs = 3
+    with torch.no_grad():
+        x = to_nchw(batch)
+        for level in cfg.relu_targets:
+            feats = vgg.encode_multi_nchw(params["encoder"], x, (level,))[level]
+            f = feats.flatten(2)
+            cov, _ = wct_ops._gram_cn(f)
+            f64 = f.double()
+            c64 = f64 - f64.mean(-1, keepdim=True)
+            cov64 = (c64 @ c64.mT) / (f.shape[-1] - 1)
+            del f64, c64
+            eye = torch.eye(cov.shape[-1], device=DEV)
+            a = (cov + wct_ops.DEFAULT_EPS * eye).contiguous()
+            wct = lambda: cascade._transform_level(feats, level, cache[level], ALPHA, cfg)  # noqa: E731
+            wct_ms, eigh_ms = cuda_ms(wct, runs), cuda_ms(lambda: torch.linalg.eigh(a), runs)
+            levels[level] = {"C": cov.shape[-1], "cov_vs_float64_rel_fro": rel_fro(cov.double(), cov64),
+                             "wct_ms": wct_ms, "eigh_ms": eigh_ms, "eigh_share": eigh_ms / wct_ms}
+            check(levels[level]["cov_vs_float64_rel_fro"] <= GRAM_F64_LIMIT,
+                  f"{level} covariance vs float64: {levels[level]}")
+            x = decoder.decode_nchw(params["decoders"][level], wct(), level)
+    eigh = lambda: cascade.stylize(params, batch, cache, ALPHA, cfg)  # noqa: E731
+    ns = lambda: cascade.stylize(params, batch, cache_ns, ALPHA, cfg_ns)  # noqa: E731
+    turns = [cuda_ms(fn, runs) / MICROBATCH for fn in (ns, eigh, eigh, ns)]
+    emit({"phase": "main_eigh", "config": "CascadeConfig()", "size": SIZE, "n_images": N_CONTENT,
+          "microbatch": MICROBATCH, "alpha": ALPHA, "launches": counts, "first_run_wall_s": wall,
+          "alpha0_vs_alpha1_mean_abs": a_diff, "batch1_vs_batch6_bitwise_equal": True,
+          "levels_b4": levels, "ms_per_frame_b4": (turns[1] + turns[2]) / 2,
+          "ms_per_frame_b4_newton_schulz_pallas": (turns[0] + turns[3]) / 2,
+          "ms_per_frame_b4_turns_ns_eigh_eigh_ns": turns,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
 
 def phase_cli():
@@ -995,24 +1230,36 @@ def main() -> int:
     lines.update(phase_conv_small_kernels(params, tensors, name))
     lines.update(phase_gram_kernel(tensors, name))
     del tensors
-    counts_bf16 = phase_main_bf16(params, content, style, cfg_bf16, out_unfused, cache, cfg)
+    counts_bf16, out_bf16, cache_bf16 = phase_main_bf16(params, content, style, cfg_bf16,
+                                                        out_unfused, cache, cfg)
     counts.update({k: counts_bf16[k] for k in ("conv3x3_small", "conv3x3_small_nchw")})
+    counts_bf16_fused = phase_main_bf16_fused(
+        params, content, style, cascade.CascadeConfig(**BF16_FUSED), out_unfused, cache, cfg,
+        out_bf16, cache_bf16, cfg_bf16)
+    counts.update({f"{k}_bf16": counts_bf16_fused[f"{k}_bf16"] for k in BY_DTYPE})
+    phase_main_eigh(params, content, style, cache, cfg)
     phase_cli()
     small = "wct_tpu_torch/csrc/conv3x3_small.cu"
+    head = ("wct_tpu_torch/csrc/encoder_head.cu", "wct_tpu/ops/junction_pallas.py:368")
+    junc = ("wct_tpu_torch/csrc/junction.cu", "wct_tpu/ops/junction_pallas.py:530")
     meta = {
         "ns_sqrtm": ("wct_tpu_torch/csrc/ns_sqrtm.cu", "wct_tpu/ops/sqrtm.py:169"),
-        "encoder_head": ("wct_tpu_torch/csrc/encoder_head.cu", "wct_tpu/ops/junction_pallas.py:368"),
+        "encoder_head": head,
+        "encoder_head_bf16": head,
         "decoder_tail": ("wct_tpu_torch/csrc/decoder_tail.cu", "wct_tpu/ops/junction_pallas.py:467"),
-        "junction": ("wct_tpu_torch/csrc/junction.cu", "wct_tpu/ops/junction_pallas.py:530"),
+        "decoder_tail_bf16": (small, "wct_tpu/ops/junction_pallas.py:467"),
+        "junction": junc,
+        "junction_bf16": junc,
         "conv3x3_small": (small, "wct_tpu/ops/conv_pallas.py:144, scripts/exp_nchw_conv.py:158"),
         "conv3x3_small_nchw": (small, "scripts/exp_nchw_conv.py:74"),
         "centered_gram": ("wct_tpu_torch/csrc/centered_gram.cu", "wct_tpu/ops/gram_pallas.py:109"),
     }
     # ms, plain_ms, bound_ms and library_ms are one microbatch's calls (5
-    # ns_sqrtm, 1 head, 3 junctions, 1 tail; the four trained small convs at
-    # [4, ·, 512, 512] through each entry; the five levels' Grams). Launches
-    # are the fused main path's run and, for the small conv (NHWC entry,
-    # NCHW entry), main_bf16's entry-point calls.
+    # ns_sqrtm, 1 head, 3 junctions, 1 tail in each operand type; the four
+    # trained small convs at [4, ·, 512, 512] through each entry; the five
+    # levels' Grams). Launches are the fused main paths' runs (main_fused for
+    # the f32 forms, main_bf16_fused for the bf16 ones) and, for the small
+    # conv (NHWC entry, NCHW entry), main_bf16's entry-point calls.
     print(json.dumps({"kernels": [{
         "name": k, "route": "cuda", "source": src, "replaces": repl, "launches": counts[k],
         "max_abs_err": lines[k]["max_abs_err"], "ms": lines[k]["ms"],

@@ -170,7 +170,14 @@ def test_config_same_value_errors_as_reference(kw):
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
 )
 def test_config_unported_options_raise_not_implemented(kw):
+    """Options the port does not carry raise, naming their ROADMAP.md
+    item; bf16 with ``fuse_junction``, which it carries, builds (the route
+    is held against the reference in tests/test_torch_junction_bf16.py)."""
     jcascade.CascadeConfig(**kw)  # legal in the reference
+    if kw == dict(compute_dtype="bfloat16", fuse_junction=True):
+        cfg = tcascade.CascadeConfig(**kw)
+        assert cfg.fuse_junction and cfg.compute_dtype == "bfloat16"
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
         tcascade.CascadeConfig(**kw)
 

@@ -293,6 +293,145 @@ def test_fused_cascade_matches_unfused_cascade(card):
     assert float(d.max()) <= 3e-2
 
 
+# ---- the bf16 forms of encoder_head, junction and decoder_tail ----
+
+# Each conv sums exact bf16 products in f32 and rounds once, in kernel and
+# plain alike, so they differ where two f32 sums straddle a rounding point.
+# One conv (the tail) against plain: ≥ 99 % bitwise, all within one bf16 ulp.
+# A chain carries a flipped intermediate rounding forward: one flip upstream
+# of conv0's O(255) weights moves some 20 outputs beyond an ulp and one of
+# them by up to about 1 % of the map's max. cuDNN's plain chain is itself up
+# to 0.7 % of its outputs beyond one ulp of a float64 evaluation of the same
+# rule and 1.7 % of the max away from it (H100, PERF.md). So the chains
+# (head, junction) are held to that evaluation, at bars a few such events
+# cannot break and a systematic error would: ≥ 99 % bitwise, ≥ 99.5 %
+# within one ulp (q99.5 of |Δ|), max |Δ| ≤ 2e-2 of max |ref|; and to plain
+# by the same max bound.
+
+
+def _agreement(got, ref):
+    """(share bitwise equal, share within one bf16 ulp, max |Δ| / max |ref|)."""
+    got, ref = got.float(), ref.float()
+    d = (got - ref).abs()
+    excess = d - (2.0**-7 * ref.abs() + 1e-5 * ref.abs().max())
+    return (float((d == 0).float().mean()), float((excess <= 0).float().mean()),
+            float(d.max() / ref.abs().max()))
+
+
+def _check_chain(got, plain, plain64):
+    bitwise, within, rel_max = _agreement(got, plain64)
+    assert bitwise >= 0.99 and within >= 0.995 and rel_max <= 2e-2, (bitwise, within, rel_max)
+    assert _agreement(got, plain)[2] <= 2e-2
+
+
+@pytest.mark.parametrize("b,h,w", SHAPES + [(4, 512, 512)])
+def test_encoder_head_bf16_kernel_matches_plain(card, weights, b, h, w):
+    x = _rand(h + w, b, 3, h, w).to(card).to(torch.bfloat16)
+    args = _on(card, weights["e1"], weights["e2"])
+    before = dict(junction.encoder_head_cuda.launches_by_dtype)
+    got = junction.encoder_head_cuda(x, *args)
+    assert junction.encoder_head_cuda.launches_by_dtype == {**before, "bf16": before["bf16"] + 1}
+    ref = junction._encoder_head_plain(x, *args)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, 64, h // 2, w // 2)
+    _check_chain(got, ref, junction._encoder_head_plain(x, *args, acc=torch.float64))
+    assert torch.equal(got, junction.encoder_head_cuda(x, *args))
+    if b > 1:
+        assert torch.equal(junction.encoder_head_cuda(x[1:2].contiguous(), *args)[0], got[1])
+
+
+@pytest.mark.parametrize("clip", [False, True], ids=["noclip", "clip"])
+@pytest.mark.parametrize("deep", [True, False], ids=["deep", "shallow"])
+@pytest.mark.parametrize("b,h,w", JUNCTION_SHAPES)
+def test_junction_bf16_kernel_matches_plain(card, weights, b, h, w, deep, clip):
+    d = (_rand(h * w, b, 64, h // 2, w // 2) * 4).to(card).to(torch.bfloat16)
+    args = _on(card, weights["d1"], weights["d2"], weights["e1"], weights["e2"])
+    before = dict(junction.junction_cuda.launches_by_dtype)
+    got = junction.junction_cuda(d, *args, deep, clip)
+    assert junction.junction_cuda.launches_by_dtype == {**before, "bf16": before["bf16"] + 1}
+    ref = junction._junction_plain(d, *args, deep, clip)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16
+    assert tuple(got.shape) == ((b, 64, h // 2, w // 2) if deep else (b, 64, h, w))
+    _check_chain(got, ref, junction._junction_plain(d, *args, deep, clip, acc=torch.float64))
+    assert torch.equal(got, junction.junction_cuda(d, *args, deep, clip))
+    if b > 1:
+        alone = junction.junction_cuda(d[1:2].contiguous(), *args, deep, clip)
+        assert torch.equal(alone[0], got[1])
+    if clip:  # the clip acts on this input
+        assert not torch.equal(got, junction.junction_cuda(d, *args, deep, False))
+
+
+@pytest.mark.parametrize("clip", [False, True], ids=["noclip", "clip"])
+@pytest.mark.parametrize("b,h,w", SHAPES + [(4, 512, 512)])
+def test_decoder_tail_bf16_kernel_matches_plain(card, b, h, w, clip):
+    f = _rand(7 * h + w, b, 64, h, w).to(card).to(torch.bfloat16)
+    wt = ((_rand(1, b, 3, 64, 3, 3) - 0.5) * 0.2).to(card)
+    bias = _rand(2, b, 3).to(card)
+    before = dict(junction.decoder_tail_cuda.launches_by_dtype)
+    small_before = conv_small.conv3x3_small_cuda.launches
+    got = junction.decoder_tail_cuda(f, wt, bias, clip)
+    assert junction.decoder_tail_cuda.launches_by_dtype == {**before, "bf16": before["bf16"] + 1}
+    assert conv_small.conv3x3_small_cuda.launches == small_before  # counted as the tail only
+    ref = junction._decoder_tail_plain(f, wt, bias, clip)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and tuple(got.shape) == (b, 3, h, w)
+    bitwise, within, _ = _agreement(got, ref)
+    assert bitwise >= 0.99 and within == 1.0, (bitwise, within)
+    assert torch.equal(got, junction.decoder_tail_cuda(f, wt, bias, clip))
+    for i in range(b):  # per-image weights: each image alone gives the bits of the batch
+        alone = junction.decoder_tail_cuda(f[i : i + 1].contiguous(), wt[i : i + 1], bias[i : i + 1],
+                                           clip)
+        assert torch.equal(alone[0], got[i])
+
+
+@pytest.mark.parametrize("kernel", ["encoder_head", "junction"])
+def test_junction_kernels_shared_memory_plan(card, kernel):
+    """The bf16 forms' shared memory as their sources plan it, and what the
+    card makes of it: the bf16 head fits two blocks per SM, the bf16
+    junction (like both f32 forms) one."""
+    plans = {dt: junction.kernel_plan(kernel, dt) for dt in (torch.float32, torch.bfloat16)}
+    if kernel == "junction":
+        assert plans == {torch.float32: (215_936, 1), torch.bfloat16: (144_576, 1)}
+    else:
+        assert plans == {torch.float32: (136_896, 1), torch.bfloat16: (76_032, 2)}
+
+
+def test_bf16_fused_cascade_on_card(card):
+    """Trained bundle, 64 px, five levels: bf16 + newton_schulz_fast +
+    fuse_junction launches the bf16 forms (1 head, 3 junctions, 1 tail per
+    chunk, no f32 form) and holds the reference's composed gate against the
+    f32 + eigh cascade (median < 0.2); alone = batch bitwise."""
+    from pathlib import Path
+
+    from wct_tpu_torch.models import cascade
+    from wct_tpu_torch.train import checkpoint
+
+    bundle = Path(__file__).resolve().parent.parent / "weights" / "bundle.npz"
+    params = checkpoint.params_from_numpy(checkpoint.load_pytree(bundle), card)
+    rng = np.random.default_rng(0)
+    content = rng.random((3, 64, 64, 3)).astype(np.float32)
+    style = rng.random((64, 64, 3)).astype(np.float32)
+    wrappers = (junction.encoder_head_cuda, junction.junction_cuda, junction.decoder_tail_cuda)
+    outs = {}
+    for name, kw in (("fid", {}), ("fused", dict(compute_dtype="bfloat16",
+                                                  method="newton_schulz_fast",
+                                                  fuse_junction=True))):
+        cfg = cascade.CascadeConfig(**kw)
+        cache = cascade.precompute_style(params["encoder"], style, cfg)
+        before = [dict(f.launches_by_dtype) for f in wrappers]
+        outs[name] = cascade.stylize_microbatched(params, content, cache, 0.8, cfg, 2)
+        delta = [{k: f.launches_by_dtype[k] - n[k] for k in n} for f, n in zip(wrappers, before)]
+        if name == "fused":
+            assert delta == [{"f32": 0, "bf16": 2}, {"f32": 0, "bf16": 6}, {"f32": 0, "bf16": 2}]
+        alone = cascade.stylize_microbatched(params, content[2:], cache, 0.8, cfg, 2)
+        assert torch.equal(alone[0], outs[name][2])
+    out = outs["fused"]
+    assert out.dtype == torch.float32 and torch.isfinite(out).all()
+    assert float(out.min()) >= 0.0 and float(out.max()) <= 1.0
+    assert float((out - outs["fid"]).abs().median()) < 0.2
+
+
 # ---- conv3x3_small (csrc/conv3x3_small.cu) against plain ----
 
 CONV_SHAPES = [(1, 8, 8), (2, 24, 40), (6, 16, 8), (1, 8, 264), (4, 512, 512)]

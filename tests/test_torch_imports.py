@@ -109,13 +109,19 @@ def test_new_kernel_modules_are_scanned():
 
 @pytest.mark.parametrize(
     "kw,item",
-    [(dict(compute_dtype="bfloat16", fuse_junction=True), "item 5c"),
+    [(dict(compute_dtype="bfloat16", fuse_junction=True), None),
      (dict(compute_dtype="bfloat16", method="newton_schulz_fast", pack2_junction=True), "item 11")],
     ids=["bf16_fuse_junction", "pack2_junction"],
 )
 def test_options_outside_the_throughput_slice_name_their_roadmap_item(kw, item):
+    """An option the port does not carry names its ROADMAP.md item; one it
+    carries (``item`` None: bf16 with ``fuse_junction``) builds."""
     from wct_tpu_torch.models import cascade
 
+    if item is None:
+        cfg = cascade.CascadeConfig(**kw)
+        assert cfg.fuse_junction and cfg.dtype == torch.bfloat16
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
         cascade.CascadeConfig(**kw)
     roadmap = (ROOT / "ROADMAP.md").read_text()
@@ -123,8 +129,13 @@ def test_options_outside_the_throughput_slice_name_their_roadmap_item(kw, item):
 
 
 def test_bf16_map_to_a_junction_kernel_names_the_roadmap_item():
+    """A bf16 map to a junction kernel is accepted on the CPU and comes
+    back bf16."""
+    from wct_tpu_torch.models.cascade import init_params
     from wct_tpu_torch.ops import junction
 
-    x = torch.zeros(1, 3, 16, 16, dtype=torch.bfloat16)
-    with pytest.raises(TypeError, match="queue 1 item 5c"):
-        junction.encoder_head_nchw(x, *([torch.zeros(1)] * 6))
+    enc = init_params(0, ("relu1_1",), device="cpu")["encoder"]
+    head = [enc[n][k] for n in ("conv0", "conv1_1", "conv1_2") for k in ("w", "b")]
+    x = torch.rand(1, 3, 16, 16).to(torch.bfloat16)
+    out = junction.encoder_head_nchw(x, *head)
+    assert out.dtype == torch.bfloat16 and tuple(out.shape) == (1, 64, 8, 8)

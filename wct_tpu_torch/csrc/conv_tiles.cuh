@@ -1,6 +1,7 @@
 // Shared device code of the junction kernels (junction.cu, encoder_head.cu,
-// decoder_tail.cu): 3x3 reflect convolutions over image tiles held in shared
-// memory, fp32 FFMA, NCHW maps.
+// decoder_tail.cu, and conv_tc.cuh, which builds their tensor-core stages on
+// it): 3x3 reflect convolutions over image tiles held in shared memory, fp32
+// FFMA, planar maps.
 //
 // A block owns one 16x16 tile of the full-resolution image and runs the
 // whole chain of convolutions on it, each intermediate living in shared
@@ -14,8 +15,8 @@
 // in-image output; the rest of the halo is overwritten all the same, so no
 // stage reads a value that was never written.
 //
-// The 64-output-channel convs share one inner loop, `conv_accumulate`: a warp
-// owns 8 output channels (its weight reads are warp-uniform shared-memory
+// `conv_accumulate` is the FFMA inner loop of the 3->64 stage: a warp owns 8
+// output channels (its weight reads are warp-uniform shared-memory
 // broadcasts), a lane owns NT tiles of 2x2 pixels, so one weight fetch feeds
 // 4*NT pixels and one 2x4 input patch feeds 3 taps. Weights are stored
 // [ci][tap][co]. The summation order of every output is fixed (ci, then dy,
@@ -30,23 +31,13 @@ namespace wct {
 constexpr int kThreads = 256;  // 8 warps; warp w owns output channels 8w..8w+7
 constexpr int kT = 16;         // tile edge at full resolution
 constexpr int kCh = 64;
-constexpr int kChunk = 8;                // input channels per staged weight chunk
 constexpr int kTapStride = 9 * kCh;      // floats per input channel in [ci][tap][co]
 constexpr int kRgbS = kT + 4;            // rgb region edge (halo 2)
 constexpr int kE1S = kT + 2;             // e1 region edge (halo 1)
 constexpr int kRgbFloats = 3 * kRgbS * kRgbS;
-constexpr int kE1Floats = kCh * kE1S * kE1S;
-constexpr int kWsFloats = kChunk * kTapStride;
 
 __device__ __forceinline__ int reflect(int g, int n) {
   return g < 0 ? -g : (g >= n ? 2 * (n - 1) - g : g);
-}
-
-// n floats (a multiple of 4, both pointers 16-byte aligned), whole block.
-__device__ __forceinline__ void copy4(float* dst, const float* __restrict__ src, int n) {
-  const float4* s = reinterpret_cast<const float4*>(src);
-  float4* d = reinterpret_cast<float4*>(dst);
-  for (int i = threadIdx.x; i < n / 4; i += kThreads) d[i] = __ldg(s + i);
 }
 
 // acc[k][r][p][c] += sum over ci < nci, dy, dx of
@@ -114,70 +105,6 @@ __device__ __forceinline__ void fix_halo(float* buf, int nch, int S, int oy, int
       if (gx < 0 || gx >= W) buf[i] = buf[i + reflect(gx, W) - gx];
     }
     __syncthreads();
-  }
-}
-
-// rgb [3][20][20] (halo fixed) -> e1 [64][18][18] = relu(conv0∘conv1_1), the
-// folded 3->64 conv. ws holds its weights [3][9][64]; be1 is global.
-__device__ __forceinline__ void stage_e1(const float* rgb, float* e1, const float* ws,
-                                         const float* __restrict__ be1) {
-  const int lane = threadIdx.x & 31, co0 = (threadIdx.x >> 5) * 8;
-  constexpr int kTiles = kE1S / 2;
-  for (int t0 = 0; t0 < kTiles * kTiles; t0 += 32) {
-    const int t = t0 + lane;
-    const bool ok = t < kTiles * kTiles;
-    const int ty = ok ? t / kTiles : 0, tx = ok ? t % kTiles : 0;
-    const int base[1] = {2 * ty * kRgbS + 2 * tx};
-    float acc[1][2][2][8] = {};
-    conv_accumulate<1>(rgb, kRgbS * kRgbS, kRgbS, 3, ws + co0, base, acc);
-    if (!ok) continue;
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float b = __ldg(be1 + co0 + c);
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int p = 0; p < 2; ++p)
-          e1[(co0 + c) * kE1S * kE1S + (2 * ty + r) * kE1S + 2 * tx + p] =
-              fmaxf(acc[0][r][p][c] + b, 0.f);
-    }
-  }
-}
-
-// e1 [64][18][18] (halo fixed) -> relu(conv1_2) on the 16x16 tile -> 2x2 max
-// pool -> out_b [64][h][w] (one image's pooled map), rows 8*by.., cols 8*bx...
-// A lane's 2x2 pixel tile is one pool window, so the pool is taken in
-// registers. ws stages the weights we2 [64][9][64] (global) 8 channels a time.
-__device__ __forceinline__ void stage_e2_pool(const float* e1, float* ws,
-                                              const float* __restrict__ we2,
-                                              const float* __restrict__ be2,
-                                              float* __restrict__ out_b, int h, int w,
-                                              int by, int bx) {
-  const int lane = threadIdx.x & 31, co0 = (threadIdx.x >> 5) * 8;
-  int base[2];
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int t = lane + 32 * k;
-    base[k] = 2 * (t >> 3) * kE1S + 2 * (t & 7);
-  }
-  float acc[2][2][2][8] = {};
-  for (int c0 = 0; c0 < kCh; c0 += kChunk) {
-    __syncthreads();
-    copy4(ws, we2 + c0 * kTapStride, kWsFloats);
-    __syncthreads();
-    conv_accumulate<2>(e1 + c0 * kE1S * kE1S, kE1S * kE1S, kE1S, kChunk, ws + co0, base, acc);
-  }
-#pragma unroll
-  for (int k = 0; k < 2; ++k) {
-    const int t = lane + 32 * k;
-    const int y = (kT / 2) * by + (t >> 3), x = (kT / 2) * bx + (t & 7);
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const float b = __ldg(be2 + co0 + c);
-      const float v = fmaxf(fmaxf(fmaxf(acc[k][0][0][c] + b, 0.f), fmaxf(acc[k][0][1][c] + b, 0.f)),
-                            fmaxf(fmaxf(acc[k][1][0][c] + b, 0.f), fmaxf(acc[k][1][1][c] + b, 0.f)));
-      out_b[((size_t)(co0 + c) * h + y) * w + x] = v;
-    }
   }
 }
 

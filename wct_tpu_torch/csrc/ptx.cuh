@@ -1,13 +1,14 @@
 // Thin wrappers around the PTX instructions the tensor-core kernels use
-// (conv3x3_small.cu, junction.cu, ns_sqrtm.cu, centered_gram.cu):
-// asynchronous 16-byte copies into shared memory, ldmatrix, and the two
-// mma.sync shapes (bf16 m16n8k16, tf32 m16n8k8), both with f32
-// accumulators; and the 3xTF32 step built on the latter. sm_80 and later;
-// the port builds for sm_90a.
+// (conv3x3_small.cu, junction.cu, encoder_head.cu, ns_sqrtm.cu,
+// centered_gram.cu): asynchronous copies into shared memory, ldmatrix, and
+// the two mma.sync shapes (bf16 m16n8k16, tf32 m16n8k8), both with f32
+// accumulators; the 3xTF32 step built on the latter; and bf16 packing.
+// sm_80 and later; the port builds for sm_90a.
 // The copies and ldmatrix are volatile, so that they keep their place between
 // barriers; the mma's touch registers only and are left to the scheduler.
 
 #pragma once
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -27,6 +28,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int sr
 // 8 bytes global -> shared through L1; src_bytes 0 writes zeros.
 __device__ __forceinline__ void cp_async8(uint32_t dst, const void* src, int src_bytes = 8) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes));
+}
+
+// 4 bytes global -> shared through L1; src_bytes 0 writes zeros.
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int src_bytes = 4) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
                "r"(src_bytes));
 }
 
@@ -69,6 +76,18 @@ __device__ __forceinline__ void mma_tf32_1688(float (&d)[4], const uint32_t (&a)
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
+
+// Two floats rounded to bf16 (to nearest even), lo in the low half: the
+// register form of an mma operand pair, and of two neighbouring channels of
+// a channel-minor map.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// The two bf16 halves of a packed pair, exactly, as floats.
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
 
 // x rounded to tf32 (round to nearest, ties away), as an f32 bit pattern.
 __device__ __forceinline__ uint32_t to_tf32(float x) {

@@ -8,10 +8,13 @@ is encoded once (``precompute_style``, one trunk sweep for all levels).
 Ported: the unpacked WCT path in f32 and in bf16
 (``compute_dtype='bfloat16'``: bf16 activations through every conv,
 f32 statistics and kernels, f32 images in and out), unfused
-(``cascade.py:526-557``, ``645-647``, ``705-715``) and, in f32, with
+(``cascade.py:526-557``, ``645-647``, ``705-715``) and with
 ``fuse_junction`` (``:474-476``, ``:545-547``, ``:609-644``,
 ``:648-704``), where the full-resolution segment between two levels
-runs in the kernels of ``ops/junction.py``.
+runs in the kernels of ``ops/junction.py`` in the activations' type
+(bf16 ones round as the TPU kernels do, once per conv after the f32
+bias: ``ops/junction.py`` says how that differs from the unfused bf16
+conv).
 Every ``CascadeConfig`` field and check is kept, so the same illegal
 combinations raise the same ``ValueError``; options that are legal but
 not ported yet raise ``NotImplementedError`` naming the ROADMAP.md item
@@ -187,8 +190,6 @@ class CascadeConfig:
             (self.wct_groups > 1, "wct_groups > 1", wct_ops.ITEM_TRUNC),
             (self.soft_trunc, "soft_trunc", wct_ops.ITEM_TRUNC),
             (self.rel_trunc is not None, "rel_trunc", wct_ops.ITEM_TRUNC),
-            (self.compute_dtype == "bfloat16" and self.fuse_junction,
-             "fuse_junction with compute_dtype='bfloat16'", wct_ops.ITEM_BF16_JUNCTION),
             (self.pack2_junction, "pack2_junction", wct_ops.ITEM_VARIANTS),
             (self.fold_transform, "fold_transform", wct_ops.ITEM_VARIANTS),
             (self.ring_conv, "ring_conv", wct_ops.ITEM_VARIANTS),

@@ -15,19 +15,29 @@ functions fuse those segments, every conv reflect-padding its own input:
 - ``decoder_tail``: the relu1_1 decoder's single conv 64→3 with
   per-image weights (the cascade folds each image's WCT affine into it).
 
-Each has a plain PyTorch version (``_encoder_head_plain``,
-``_junction_plain``, ``_decoder_tail_plain``: the unfused chain out of
-``ops/convs.py``) and a hand-written CUDA kernel (``csrc/encoder_head.cu``,
-``csrc/junction.cu``, ``csrc/decoder_tail.cu``; the designs and bounds
-are in the sources). A CUDA tensor launches the kernel or raises, a CPU
-tensor takes the plain version, any other device raises; there is no
-fallback from kernel to plain. ``encoder_head_cuda.launches`` etc.
-count the launches.
+Each computes in the operand type of its map, f32 or bf16, as the TPU
+kernels do (``junction_pallas.py:386``, ``:486``, ``:556``). Each has a
+plain PyTorch version (``_encoder_head_plain``, ``_junction_plain``,
+``_decoder_tail_plain``) and a hand-written CUDA kernel per operand type
+(``csrc/encoder_head.cu`` and ``csrc/junction.cu``, both types;
+``csrc/decoder_tail.cu`` f32 and ``csrc/conv3x3_small.cu``'s per-image
+entry bf16; the designs and bounds are in the sources). A CUDA tensor
+launches the kernel of its type or raises, a CPU tensor takes the plain
+version, any other device raises; there is no fallback from kernel to
+plain or from one type to the other. ``encoder_head_cuda.launches``
+etc. count the launches, and ``.launches_by_dtype`` counts them per
+operand type.
+
+f32 maps run the unfused chain of ``ops/convs.py``. bf16 maps follow
+the TPU kernels' rule, which is not the unfused bf16 conv's: every conv
+sums exact bf16 × bf16 products in f32, adds the f32 bias, applies the
+ReLU, and rounds once to bf16 (``_cs_conv``); conv0 is folded into
+conv1_1 and the tail's per-image weights are folded in f32 and then
+rounded to bf16; biases stay f32; every intermediate map is bf16.
 
 The public functions take and return ``[B, H, W, C]`` as the JAX
 package's do; the cascade calls the ``*_nchw`` forms. Weights are the
-port's OIHW. f32 only: the bf16-operand form is ROADMAP.md queue 1
-item 5c, and until then a bf16 map raises ``TypeError``.
+port's OIHW.
 """
 
 from __future__ import annotations
@@ -37,7 +47,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from wct_tpu_torch.ops._build import launch as _launch
+from wct_tpu_torch.ops import _build
 from wct_tpu_torch.ops.convs import (
     compose_1x1_into_conv,
     conv2d_reflect_nchw,
@@ -51,6 +61,8 @@ from wct_tpu_torch.ops.convs import (
 # The kernels work on 16×16 tiles of the full-resolution image.
 TILE = 16
 CHANNELS = 64
+# The operand types the kernels take, by the name of their C entry points.
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def fold_conv0(w0, b0, w11, b11):
@@ -66,41 +78,73 @@ def fold_conv0(w0, b0, w11, b11):
 # ---------------------------------------------------------------- plain
 
 
-def _encoder_head_plain(x, we1, be1, w12, b12):
-    """``x [B, 3, H, W]`` → ``[B, 64, H/2, W/2]``; ``we1, be1`` folded."""
-    e1 = torch.relu(conv2d_reflect_nchw(x, we1, be1))
-    return maxpool2_nchw(torch.relu(conv2d_reflect_nchw(e1, w12, b12)))
+def _cs_conv(xp, w, bias, relu: bool, acc: torch.dtype = torch.float32):
+    """The TPU kernels' conv (``junction_pallas.py::_cs_conv``), VALID on
+    an input that already carries its halo.
+
+    ``xp [B, Ci, R, W+2]``, OIHW ``w [Co, Ci, 3, 3]`` (or per image
+    ``[B, Co, Ci, 3, 3]``), f32 ``bias [Co]`` (or ``[B, Co]``) →
+    ``[B, Co, R−2, W]`` in ``xp``'s type: the weights rounded to that
+    type, the exact products summed in f32, the f32 bias added, then the
+    ReLU, then one rounding. ``acc=torch.float64`` sums in float64
+    instead: the reference the card's checks hold the kernels to.
+    """
+    x = xp.to(acc)
+    wt = w.to(xp.dtype).to(acc)
+    if wt.dim() == 5:  # one weight set per image: a grouped conv
+        b, co = wt.shape[:2]
+        y = F.conv2d(x.reshape(1, -1, *x.shape[2:]), wt.flatten(0, 1), groups=b)
+        y = y.reshape(b, co, *y.shape[2:]) + bias.to(acc)[:, :, None, None]
+    else:
+        y = F.conv2d(x, wt) + bias.to(acc)[:, None, None]
+    return (torch.relu(y) if relu else y).to(xp.dtype)
 
 
-def _junction_plain(d, wd1, bd1, wd2, bd2, we1, be1, w12, b12, deep, clip):
+def _conv(x, w, b, relu: bool, acc: torch.dtype = torch.float32):
+    """Reflect-padded 3×3 conv in the operand type of ``x``: f32 as the
+    unfused chain, bf16 by the kernels' one-rounding rule, summed in
+    ``acc``."""
+    if x.dtype == torch.bfloat16:
+        return _cs_conv(pad_reflect_nchw(x), w, b, relu, acc)
+    y = conv2d_reflect_nchw(x, w, b)
+    return torch.relu(y) if relu else y
+
+
+def _encoder_head_plain(x, we1, be1, w12, b12, acc=torch.float32):
+    """``x [B, 3, H, W]`` → ``[B, 64, H/2, W/2]``; ``we1, be1`` folded.
+    ``acc``: what a bf16 map's convs sum in (``_cs_conv``)."""
+    e1 = _conv(x, we1, be1, True, acc)
+    return maxpool2_nchw(_conv(e1, w12, b12, True, acc))
+
+
+def _junction_plain(d, wd1, bd1, wd2, bd2, we1, be1, w12, b12, deep, clip, acc=torch.float32):
     """``d [B, 64, h, w]`` → ``[B, 64, h, w]`` (deep) or ``[B, 64, 2h, 2w]``."""
-    m = torch.relu(conv2d_reflect_nchw(upsample_nearest2_nchw(d), wd1, bd1))
-    rgb = conv2d_reflect_nchw(m, wd2, bd2)
-    if clip:
+    m = _conv(upsample_nearest2_nchw(d), wd1, bd1, True, acc)
+    rgb = _conv(m, wd2, bd2, False, acc)
+    if clip:  # commutes with the rounding: 0 and 1 are bf16 values
         rgb = rgb.clamp(0.0, 1.0)
-    e1 = torch.relu(conv2d_reflect_nchw(rgb, we1, be1))
+    e1 = _conv(rgb, we1, be1, True, acc)
     if not deep:
         return e1
-    return maxpool2_nchw(torch.relu(conv2d_reflect_nchw(e1, w12, b12)))
+    return maxpool2_nchw(_conv(e1, w12, b12, True, acc))
 
 
-def _decoder_tail_plain(f, w, b, clip):
+def _decoder_tail_plain(f, w, b, clip, acc=torch.float32):
     """``f [B, 64, H, W]``, ``w [B, 3, 64, 3, 3]``, ``b [B, 3]`` →
     ``[B, 3, H, W]``: one grouped conv, a group per image."""
-    bsz, c, h, wd = f.shape
-    x = pad_reflect_nchw(f).reshape(1, bsz * c, h + 2, wd + 2)
-    out = F.conv2d(x, w.reshape(bsz * 3, c, 3, 3), b.reshape(-1), groups=bsz)
-    out = out.reshape(bsz, 3, h, wd)
+    out = _cs_conv(pad_reflect_nchw(f), w, b, False, acc)
     return out.clamp(0.0, 1.0) if clip else out
 
 
 # -------------------------------------------------------------- kernels
 
 
-def _taps(w: torch.Tensor, pad_co: int | None = None) -> torch.Tensor:
-    """OIHW ``[..., co, ci, 3, 3]`` → the kernels' ``[..., ci, tap, co]``,
-    f32 contiguous, ``co`` zero-padded to ``pad_co``."""
-    t = w.float().movedim(-4, -1).flatten(-3, -2)
+def _taps(w: torch.Tensor, pad_co: int | None = None,
+          dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """OIHW ``[..., co, ci, 3, 3]`` → the FFMA stages' ``[..., ci, tap, co]``,
+    f32 contiguous, ``co`` zero-padded to ``pad_co``; the values rounded
+    to ``dtype`` first (bf16: what the bf16 kernels multiply by)."""
+    t = w.to(dtype).float().movedim(-4, -1).flatten(-3, -2)
     if pad_co is not None:
         t = F.pad(t, (0, pad_co - t.shape[-1]))
     return t.contiguous()
@@ -129,15 +173,38 @@ def _tc_frags(w: torch.Tensor) -> torch.Tensor:
     return torch.cat([hi, _tf32(t - hi)], dim=-1).contiguous()
 
 
+def _tc_frags_bf16(w: torch.Tensor) -> torch.Tensor:
+    """OIHW ``[64, 64, 3, 3]`` → the bf16 kernels' ``mma.m16n8k16`` B
+    fragments.
+
+    ``[tap][k-step][n-tile pair][lane][2][4]`` bf16, 16 bytes per lane and
+    pair: lane ``4g + t`` of n-tile ``nt = 2p + s`` at k-step ``ks`` holds
+    ``w[8nt + g, 16ks + 2t + 8r + e, tap]`` at ``[s][2r + e]`` (registers
+    b0, b1 of the fragment, low half first), the weights rounded to bf16.
+    """
+    t = w.to(torch.bfloat16).reshape(4, 2, 8, 4, 2, 4, 2, 9)  # p, s, g, ks, r, t, e, tap
+    t = t.permute(7, 3, 0, 2, 5, 1, 4, 6)  # tap, ks, p, g, t, s, r, e
+    return t.reshape(9, 4, 4, 32, 2, 4).contiguous()
+
+
+def _tail_taps_bf16(w: torch.Tensor, b: torch.Tensor):
+    """Per-image ``w [B, 3, 64, 3, 3]``, ``b [B, 3]`` → the small-conv
+    kernel's bf16 k-group layout and f32 bias for every image, in one
+    pass over the batch: ``[B, 72, 8, 8]`` and ``[B, 8]``, image ``i``
+    what ``conv_small._taps(w[i], b[i])`` gives (k-group ``8·tap + g``
+    holds ``w[i, co, 8g:8g+8, tap]``, co padded to 8)."""
+    bsz = w.shape[0]
+    t = F.pad(w.to(torch.bfloat16), (0, 0, 0, 0, 0, 0, 0, 5))  # co 3 → 8
+    t = t.reshape(bsz, 8, 8, 8, 9).permute(0, 4, 2, 1, 3)  # b, tap, g, co, j
+    return t.reshape(bsz, 72, 8, 8).contiguous(), F.pad(b.float(), (0, 5)).contiguous()
+
+
 def _check_input(name: str, x: torch.Tensor, channels: int, scale: int = 1) -> None:
     """What both routes need of the map ``x [B, channels, H/scale, W/scale]``."""
     if x.dim() != 4 or x.shape[1] != channels:
         raise ValueError(f"{name} needs [B, {channels}, H, W], got {tuple(x.shape)}")
-    if x.dtype != torch.float32:
-        raise TypeError(
-            f"{name} needs float32, got {x.dtype}; the bf16-operand form is "
-            "not ported yet (ROADMAP.md queue 1 item 5c)"
-        )
+    if x.dtype not in DTYPES:
+        raise TypeError(f"{name} needs float32 or bfloat16, got {x.dtype}")
     h, w = scale * x.shape[2], scale * x.shape[3]
     if h <= 0 or w <= 0 or h % TILE or w % TILE:
         raise ValueError(
@@ -169,9 +236,25 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
     return t.float().contiguous()
 
 
+def _frags(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A 64→64 conv's tensor-core B fragments for the kernel of ``dtype``."""
+    return _tc_frags(w) if dtype == torch.float32 else _tc_frags_bf16(w)
+
+
+def _counted(fn, x: torch.Tensor) -> None:
+    fn.launches += 1
+    fn.launches_by_dtype[DTYPES[x.dtype]] += 1
+
+
+def _counter(fn) -> None:
+    fn.launches = 0
+    fn.launches_by_dtype = {name: 0 for name in DTYPES.values()}
+
+
 def encoder_head_cuda(x, we1, be1, w12, b12) -> torch.Tensor:
-    """The CUDA kernel on ``x [B, 3, H, W]`` (f32, contiguous, on the
-    card; H and W multiples of 16) → ``[B, 64, H/2, W/2]``.
+    """The CUDA kernel of ``x``'s type on ``x [B, 3, H, W]`` (f32 or bf16,
+    contiguous, on the card; H and W multiples of 16) → ``[B, 64, H/2,
+    W/2]`` of the same type.
 
     ``we1 [64, 3, 3, 3], be1`` is the folded conv0∘conv1_1. Launches on
     the current stream and does not synchronise; raises on any input
@@ -184,23 +267,24 @@ def encoder_head_cuda(x, we1, be1, w12, b12) -> torch.Tensor:
         "conv1_2": (w12, (CHANNELS, CHANNELS, 3, 3)), "conv1_2's bias": (b12, (CHANNELS,)),
     })
     b, _, h, w = x.shape
-    out = torch.empty((b, CHANNELS, h // 2, w // 2), dtype=torch.float32, device=x.device)
-    t1, t2, c1, c2 = _taps(we1), _taps(w12), _f32(be1), _f32(b12)
-    _launch(name, "encoder_head", "encoder_head_f32", [_PTR] * 6 + [_INT] * 3,
+    out = torch.empty((b, CHANNELS, h // 2, w // 2), dtype=x.dtype, device=x.device)
+    t1, t2, c1, c2 = _taps(we1, dtype=x.dtype), _frags(w12, x.dtype), _f32(be1), _f32(b12)
+    _build.launch(name, "encoder_head", f"encoder_head_{DTYPES[x.dtype]}", [_PTR] * 6 + [_INT] * 3,
             (x.data_ptr(), t1.data_ptr(), c1.data_ptr(), t2.data_ptr(), c2.data_ptr(),
              out.data_ptr(), b, h, w), x.device)
-    encoder_head_cuda.launches += 1
+    _counted(encoder_head_cuda, x)
     return out
 
 
-encoder_head_cuda.launches = 0
+_counter(encoder_head_cuda)
 
 
 def junction_cuda(d, wd1, bd1, wd2, bd2, we1, be1, w12=None, b12=None,
                   deep: bool = True, clip: bool = False) -> torch.Tensor:
-    """The CUDA kernel on ``d [B, 64, h, w]`` (f32, contiguous, on the
-    card; 2h and 2w multiples of 16) → ``[B, 64, h, w]`` (deep) or
-    ``[B, 64, 2h, 2w]``. Conditions as ``encoder_head_cuda``."""
+    """The CUDA kernel of ``d``'s type on ``d [B, 64, h, w]`` (f32 or bf16,
+    contiguous, on the card; 2h and 2w multiples of 16) → ``[B, 64, h, w]``
+    (deep) or ``[B, 64, 2h, 2w]`` of the same type. Conditions as
+    ``encoder_head_cuda``."""
     name = "junction_cuda"
     _check_input(name, d, CHANNELS, scale=2)
     weights = {
@@ -218,41 +302,66 @@ def junction_cuda(d, wd1, bd1, wd2, bd2, we1, be1, w12=None, b12=None,
     _check_on_card(name, d, weights)
     b, _, h, w = d.shape
     shape = (b, CHANNELS, h, w) if deep else (b, CHANNELS, 2 * h, 2 * w)
-    out = torch.empty(shape, dtype=torch.float32, device=d.device)
-    t1, t2, t3 = _tc_frags(wd1), _taps(wd2, pad_co=4), _taps(we1)
+    out = torch.empty(shape, dtype=d.dtype, device=d.device)
+    t1, t2, t3 = _frags(wd1, d.dtype), _taps(wd2, pad_co=4, dtype=d.dtype), _taps(we1, dtype=d.dtype)
     c1, c2, c3 = _f32(bd1), _f32(bd2), _f32(be1)
-    t4, c4 = (_tc_frags(w12), _f32(b12)) if deep else (t1, c1)  # never read when shallow
-    _launch(name, "junction", "junction_f32", [_PTR] * 10 + [_INT] * 5,
+    t4, c4 = (_frags(w12, d.dtype), _f32(b12)) if deep else (t1, c1)  # never read when shallow
+    _build.launch(name, "junction", f"junction_{DTYPES[d.dtype]}", [_PTR] * 10 + [_INT] * 5,
             (d.data_ptr(), t1.data_ptr(), c1.data_ptr(), t2.data_ptr(), c2.data_ptr(),
              t3.data_ptr(), c3.data_ptr(), t4.data_ptr(), c4.data_ptr(), out.data_ptr(),
              b, h, w, int(deep), int(clip)), d.device)
-    junction_cuda.launches += 1
+    _counted(junction_cuda, d)
     return out
 
 
-junction_cuda.launches = 0
+_counter(junction_cuda)
 
 
 def decoder_tail_cuda(f, w, b, clip: bool = False) -> torch.Tensor:
-    """The CUDA kernel on ``f [B, 64, H, W]`` (f32, contiguous, on the
-    card; H and W multiples of 16) with per-image ``w [B, 3, 64, 3, 3]``,
-    ``b [B, 3]`` → ``[B, 3, H, W]``. Conditions as ``encoder_head_cuda``."""
+    """The CUDA kernel of ``f``'s type on ``f [B, 64, H, W]`` (f32 or bf16,
+    contiguous, on the card; H and W multiples of 16) with per-image
+    ``w [B, 3, 64, 3, 3]``, ``b [B, 3]`` → ``[B, 3, H, W]`` of the same
+    type. f32 runs ``csrc/decoder_tail.cu``; bf16 runs the small conv's
+    per-image entry (``csrc/conv3x3_small.cu``), which computes this conv
+    under the same one-rounding rule. Conditions as ``encoder_head_cuda``."""
     name = "decoder_tail_cuda"
     _check_input(name, f, CHANNELS)
     bsz, _, h, wd = f.shape
     _check_on_card(name, f, {"per-image weights": (w, (bsz, 3, CHANNELS, 3, 3)),
                              "per-image biases": (b, (bsz, 3))})
-    out = torch.empty((bsz, 3, h, wd), dtype=torch.float32, device=f.device)
-    t = _taps(w, pad_co=4)
-    c = F.pad(b.float(), (0, 1)).contiguous()
-    _launch(name, "decoder_tail", "decoder_tail_f32", [_PTR] * 4 + [_INT] * 4,
+    out = torch.empty((bsz, 3, h, wd), dtype=f.dtype, device=f.device)
+    if f.dtype == torch.float32:
+        t, c = _taps(w, pad_co=4), F.pad(b.float(), (0, 1)).contiguous()
+        lib = "decoder_tail"
+    else:
+        if f.data_ptr() % 16:
+            raise ValueError(f"{name} needs a bfloat16 map on a 16-byte boundary")
+        t, c = _tail_taps_bf16(w, b)
+        lib = "conv3x3_small"
+    _build.launch(name, lib, f"decoder_tail_{DTYPES[f.dtype]}", [_PTR] * 4 + [_INT] * 4,
             (f.data_ptr(), t.data_ptr(), c.data_ptr(), out.data_ptr(), bsz, h, wd, int(clip)),
             f.device)
-    decoder_tail_cuda.launches += 1
+    _counted(decoder_tail_cuda, f)
     return out
 
 
-decoder_tail_cuda.launches = 0
+_counter(decoder_tail_cuda)
+
+
+def kernel_plan(kernel: str, dtype: torch.dtype) -> tuple[int, int]:
+    """``(shared memory bytes per block, blocks per SM)`` of the
+    ``encoder_head`` or ``junction`` kernel of ``dtype`` on the current
+    card, as its source plans them."""
+    if kernel not in ("encoder_head", "junction"):
+        raise ValueError(f"no shared-memory plan for {kernel!r}")
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    fn = getattr(_build.load(kernel), f"{kernel}_plan")
+    fn.argtypes = [_INT, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    err = fn(int(dtype == torch.bfloat16), ctypes.byref(smem), ctypes.byref(blocks))
+    if err != 0:
+        raise RuntimeError(f"{kernel}_plan failed: CUDA error {err}")
+    return smem.value, blocks.value
 
 
 # ------------------------------------------------------------- wrappers

@@ -49,10 +49,6 @@ _AUTO_EIGH_MAX_C = 64
 
 # Where each part that is not ported yet is carried in ROADMAP.md.
 ITEM_TRUNC = "ROADMAP.md queue 1 item 4b (truncation modes and grouped WCT)"
-ITEM_BF16_JUNCTION = (
-    "ROADMAP.md queue 1 item 5c (bf16-operand form of encoder_head, junction "
-    "and decoder_tail)"
-)
 ITEM_ADAIN_SWAP = "ROADMAP.md queue 1 item 6 (AdaIN and style-swap)"
 ITEM_VARIANTS = "ROADMAP.md queue 1 item 11 (opt-in variants)"
 

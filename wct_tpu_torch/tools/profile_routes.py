@@ -1,13 +1,15 @@
-"""Time the three cascade routes per 512-px frame on the card, in turns.
+"""Time the four cascade routes per 512-px frame on the card, in turns.
 
     python -m wct_tpu_torch.tools.profile_routes [--rounds 3] [--label this]
 
 Runs ``stylize`` on one microbatch of 4 seeded noise images with a cached
 seeded style on the trained bundle, for the f32 unfused route
 (``method="newton_schulz_pallas"``), the fused one (``fuse_junction=True``)
-and the bf16 throughput one (``compute_dtype="bfloat16",
-method="newton_schulz_fast", compose_conv0=True``), in the order f32,
-fused, bf16, then back, for ``--rounds`` rounds: each timing is 5 calls
+the bf16 throughput one (``compute_dtype="bfloat16",
+method="newton_schulz_fast", compose_conv0=True``) and the bf16 fused one
+(``compute_dtype="bfloat16", method="newton_schulz_fast",
+fuse_junction=True``), in the order f32, fused, bf16, bf16_fused, then
+back, for ``--rounds`` rounds: each timing is 5 calls
 after 2 of warm-up (CUDA events), divided by the batch. Prints the card's
 name and power limit, one JSON line per timing, and a summary with each
 route's mean, minimum and maximum.
@@ -15,7 +17,9 @@ route's mean, minimum and maximum.
 It uses only entry points that every slice of the port since the bf16
 route has, so the same file can time an older checkout of the package in
 the same call (put that checkout first on ``PYTHONPATH`` and run this file
-by its path), which is how two commits are compared on one card.
+by its path), which is how two commits are compared on one card. A route
+the checkout does not carry (its ``CascadeConfig`` raises
+``NotImplementedError``) is named in one line and skipped.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ ROUTES = {
     "f32": dict(method="newton_schulz_pallas"),
     "fused": dict(method="newton_schulz_pallas", fuse_junction=True),
     "bf16": dict(compute_dtype="bfloat16", method="newton_schulz_fast", compose_conv0=True),
+    "bf16_fused": dict(compute_dtype="bfloat16", method="newton_schulz_fast", fuse_junction=True),
 }
 
 
@@ -56,11 +61,15 @@ def main(argv=None) -> None:
     style = rng.random((SIZE, SIZE, 3)).astype(np.float32)
     runs = {}
     for name, kw in ROUTES.items():
-        cfg = cascade.CascadeConfig(**kw)
+        try:
+            cfg = cascade.CascadeConfig(**kw)
+        except NotImplementedError as e:
+            print(json.dumps({"label": args.label, "route": name, "skipped": str(e)}), flush=True)
+            continue
         cache = cascade.precompute_style(params["encoder"], style, cfg)
         runs[name] = (lambda cfg=cfg, cache=cache: cascade.stylize(params, batch, cache, ALPHA, cfg))
-    times = {name: [] for name in ROUTES}
-    order = list(ROUTES)
+    times = {name: [] for name in runs}
+    order = list(runs)
     for r in range(args.rounds):
         for name in (order if r % 2 == 0 else order[::-1]):
             ms = cuda_ms(runs[name], 5) / BATCH
