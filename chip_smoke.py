@@ -16,9 +16,12 @@ compose_conv0=True``, phase ``main_bf16``, which also sends the
 cascade's own relu1_1-tier tensors through the small-conv and
 centred-Gram entry points), in bf16 with ``fuse_junction=True``
 (``main_bf16_fused``: the bf16 forms of the junction kernels), and in
-the default ``CascadeConfig()`` (f32, ``eigh``, ``main_eigh``). It
-checks the outputs of each and one against another, and runs the CLI
-twice.
+the default ``CascadeConfig()`` (f32, ``eigh``, ``main_eigh``). Then the
+other transforms: AdaIN unfused in f32 (``main_adain``) and fused in bf16
+(``main_adain_fused``), style-swap at relu5_1 (``main_swap5``), grouped
+WCT with four groups (``main_groups``) and the relative truncation
+(``main_trunc``, one batch). It checks the outputs of each and one
+against another, and runs the CLI five times.
 
 Each phase prints one JSON line. The line before the last lists each
 kernel with its launches in the main path's run and its times; the
@@ -40,7 +43,9 @@ import torch
 import torch.nn.functional as F
 
 from wct_tpu_torch.models import cascade, decoder, vgg
-from wct_tpu_torch.ops import _build, conv_small, gram, junction, sqrtm
+from wct_tpu_torch.ops import _build, conv_small, convs, gram, junction, reductions, sqrtm
+from wct_tpu_torch.ops import adain as adain_ops
+from wct_tpu_torch.ops import style_swap as swap_ops
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import (
     compose_1x1_into_conv,
@@ -300,9 +305,10 @@ def phase_kernel(params, content, style, cfg, name):
     }
 
 
-def phase_main(params, content, style, cfg):
-    # The main path's run: style once, then two microbatches (the
-    # second padded). Only this window's launches count.
+def drive(params, content, style, cfg):
+    """One route through the user's entry points, the style once and the
+    content in microbatches, with every launch count set to 0 just before
+    and read just after: (cache, out, counts, wall seconds)."""
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -310,7 +316,31 @@ def phase_main(params, content, style, cfg):
     out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = read_counts()
+    return cache, out, read_counts(), wall
+
+
+def unfused_stages(params, batch, cache, cfg, runs=3) -> dict:
+    """One microbatch's encode / transform / decode ms per level, unfused,
+    teacher-forced on the running image as the cascade runs them."""
+    stages = {}
+    with torch.no_grad():
+        x = to_nchw(batch).to(cfg.dtype)
+        for level in cfg.relu_targets:
+            enc = lambda: vgg.encode_multi_nchw(params["encoder"], x, (level,))[level]  # noqa: E731
+            feats = enc()
+            wct = lambda: cascade._transform_level(feats, level, cache[level], ALPHA, cfg)  # noqa: E731
+            tr = wct()
+            dec = lambda: decoder.decode_nchw(params["decoders"][level], tr, level)  # noqa: E731
+            stages[level] = {"encode_ms": cuda_ms(enc, runs), "transform_ms": cuda_ms(wct, runs),
+                             "decode_ms": cuda_ms(dec, runs)}
+            x = dec()
+    return stages
+
+
+def phase_main(params, content, style, cfg):
+    # The main path's run: style once, then two microbatches (the
+    # second padded). Only this window's launches count.
+    cache, out, counts, wall = drive(params, content, style, cfg)
     launches = counts["ns_sqrtm"]
     n_levels = len(cfg.relu_targets)
     n_chunks = -(-N_CONTENT // MICROBATCH)
@@ -347,20 +377,7 @@ def phase_main(params, content, style, cfg):
     ) / MICROBATCH
     ms_style = cuda_ms(lambda: cascade.precompute_style(params["encoder"], style, cfg), runs)
 
-    # Where one microbatch's time goes, stage by stage (teacher-forced on
-    # the running image, as the cascade runs them).
-    stages = {}
-    with torch.no_grad():
-        x = to_nchw(batch)
-        for level in cfg.relu_targets:
-            enc = lambda: vgg.encode_multi_nchw(params["encoder"], x, (level,))[level]  # noqa: E731
-            feats = enc()
-            wct = lambda: cascade._transform_level(feats, level, cache[level], ALPHA, cfg)  # noqa: E731
-            tr = wct()
-            dec = lambda: decoder.decode_nchw(params["decoders"][level], tr, level)  # noqa: E731
-            stages[level] = {"encode_ms": cuda_ms(enc, runs), "wct_ms": cuda_ms(wct, runs),
-                             "decode_ms": cuda_ms(dec, runs)}
-            x = dec()
+    stages = unfused_stages(params, batch, cache, cfg, runs)
     emit({"phase": "main", "config": "CascadeConfig(method='newton_schulz_pallas')",
           "size": SIZE, "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA,
           "launches": counts, "first_run_wall_s": wall,
@@ -625,8 +642,7 @@ def fused_stages(params, batch, cache, cfg) -> dict:
                 conv = dec_p["dec_conv1_1"]
 
                 def wct():
-                    m, bias = wct_ops.wct_transform_cn(feats.flatten(2), cache[level].stats,
-                                                       ALPHA, method=cfg.method)
+                    m, bias = cascade._level_affine(feats, level, cache[level], ALPHA, cfg)
                     return decoder.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
 
                 wf, bf = wct()
@@ -651,14 +667,7 @@ def fused_stages(params, batch, cache, cfg) -> dict:
 
 def phase_main_fused(params, content, style, cfg, out_unfused, cache_unfused, cfg_unfused):
     """The fuse_junction cascade through the same entry points."""
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cache = cascade.precompute_style(params["encoder"], style, cfg)
-    out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
+    cache, out, counts, wall = drive(params, content, style, cfg)
     n_chunks = -(-N_CONTENT // MICROBATCH)
     expected = {**NO_LAUNCHES, "ns_sqrtm": 5 * (1 + n_chunks), "centered_gram": 5 * (1 + n_chunks),
                 "encoder_head": n_chunks, "junction": 3 * n_chunks, "decoder_tail": n_chunks}
@@ -905,15 +914,8 @@ def phase_main_bf16(params, content, style, cfg, out_f32, cache_f32, cfg_f32):
     """The bf16 throughput cascade through the same entry points, then
     the small-conv and centred-Gram entry points on its own relu1_1-tier
     tensors; the launch counts cover both."""
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cache = cascade.precompute_style(params["encoder"], style, cfg)
-    out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    cache, out, cascade_counts, wall = drive(params, content, style, cfg)
     n_chunks = -(-N_CONTENT // MICROBATCH)
-    cascade_counts = read_counts()
     check(cascade_counts == {**NO_LAUNCHES, "centered_gram": 5 * (1 + n_chunks)},
           f"the bf16 cascade itself launched {cascade_counts}")
     check(out.dtype == torch.float32 and tuple(out.shape) == (N_CONTENT, SIZE, SIZE, 3),
@@ -1048,14 +1050,7 @@ def phase_main_bf16_fused(params, content, style, cfg, out_f32, cache_f32, cfg_f
     """The bf16 fused-junction cascade through the same entry points, held
     to main_bf16's gates against the f32 cascade; its distance from the
     unfused bf16 route is printed."""
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cache = cascade.precompute_style(params["encoder"], style, cfg)
-    out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
+    cache, out, counts, wall = drive(params, content, style, cfg)
     n_chunks = -(-N_CONTENT // MICROBATCH)
     expected = {**NO_LAUNCHES, "centered_gram": 5 * (1 + n_chunks), "encoder_head_bf16": n_chunks,
                 "junction_bf16": 3 * n_chunks, "decoder_tail_bf16": n_chunks}
@@ -1119,14 +1114,7 @@ def phase_main_eigh(params, content, style, cache_ns, cfg_ns):
     covariances against float64 at every level, and eigh's share of each
     level's WCT stage."""
     cfg = cascade.CascadeConfig()
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    cache = cascade.precompute_style(params["encoder"], style, cfg)
-    out = cascade.stylize_microbatched(params, content, cache, ALPHA, cfg, microbatch=MICROBATCH)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = read_counts()
+    cache, out, counts, wall = drive(params, content, style, cfg)
     n_chunks = -(-N_CONTENT // MICROBATCH)
     check(counts == {**NO_LAUNCHES, "centered_gram": 5 * (1 + n_chunks)},
           f"eigh main path launched {counts}")
@@ -1176,10 +1164,369 @@ def phase_main_eigh(params, content, style, cache_ns, cfg_ns):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
 
+def route_checks(params, content, cache, cfg, out, label) -> None:
+    """f32 output of the content's shape, finite, in [0, 1], and an image's
+    output the same bits alone as in the batch."""
+    check(out.dtype == torch.float32 and tuple(out.shape) == (N_CONTENT, SIZE, SIZE, 3),
+          f"{label} output {out.dtype} {tuple(out.shape)}")
+    check(bool(torch.isfinite(out).all()), f"{label}: non-finite output")
+    check(float(out.min()) >= 0.0 and float(out.max()) <= 1.0, f"{label}: output outside [0, 1]")
+    single = cascade.stylize_microbatched(params, content[:1], cache, ALPHA, cfg, MICROBATCH)
+    check(torch.equal(single[0], out[0]), f"{label} output depends on the submitted batch size")
+
+
+# AdaIN's moments against float64, relative to the largest style std.
+ADAIN_MOMENTS_LIMIT = 1e-4
+
+
+def phase_main_adain(params, content, style):
+    """transform='adain', f32, unfused: AdaIN's moments are the centred-Gram
+    kernel's mean and diagonal (one launch per level and call)."""
+    cfg = cascade.CascadeConfig(transform="adain")
+    cache, out, counts, wall = drive(params, content, style, cfg)
+    n_chunks = -(-N_CONTENT // MICROBATCH)
+    expected = {**NO_LAUNCHES, "centered_gram": 5 * (1 + n_chunks)}
+    check(counts == expected, f"main_adain launched {counts}, expected {expected}")
+    route_checks(params, content, cache, cfg, out, "main_adain")
+
+    # Per level, teacher-forced on the route's running image: at α = 1 the
+    # transformed features carry the style's channel means and stds (a
+    # channel of variance v leaves with std σ_s·√(v / (v + eps))).
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    levels = {}
+    with torch.no_grad():
+        x = to_nchw(batch)
+        for level in cfg.relu_targets:
+            feats = vgg.encode_multi_nchw(params["encoder"], x, (level,))[level]
+            tr = cascade._transform_level(feats, level, cache[level], 1.0, cfg).flatten(2).double()
+            var_c = feats.flatten(2).double().var(-1, unbiased=False)
+            st = cache[level].adain
+            std_s = st.std.double()
+            want_std = std_s * torch.sqrt(var_c / (var_c + adain_ops.DEFAULT_EPS))
+            scale = float(std_s.max())
+            levels[level] = {
+                "mean_err": float((tr.mean(-1) - st.mean.double()).abs().max()) / scale,
+                "std_err": float((tr.std(-1, unbiased=False) - want_std).abs().max()) / scale}
+            del tr
+            check(levels[level]["mean_err"] <= ADAIN_MOMENTS_LIMIT
+                  and levels[level]["std_err"] <= ADAIN_MOMENTS_LIMIT,
+                  f"main_adain {level}: moments {levels[level]} > {ADAIN_MOMENTS_LIMIT}")
+            if level == "relu1_1":  # the moments route against the plain two-pass it replaces
+                f1 = feats.flatten(2)
+                levels[level].update(moments_gram_ms=cuda_ms(lambda: gram.moments_cn(f1), 10),
+                                     moments_two_pass_ms=cuda_ms(lambda: reductions.moments0(f1.mT), 10))
+            x = decoder.decode_nchw(params["decoders"][level],
+                                    cascade._transform_level(feats, level, cache[level], ALPHA, cfg),
+                                    level)
+        # α = 0 is the content path: each level's encode → decode.
+        out_a0 = cascade.stylize_microbatched(params, content[:MICROBATCH], cache, 0.0, cfg,
+                                              MICROBATCH)
+        x = to_nchw(batch)
+        for level in cfg.relu_targets:
+            x = decoder.decode_nchw(params["decoders"][level],
+                                    vgg.encode_multi_nchw(params["encoder"], x, (level,))[level], level)
+        round_trip = to_nhwc(x.clamp(0.0, 1.0))
+    a0_err = float((out_a0 - round_trip).abs().max())
+    check(a0_err <= 1e-6, f"main_adain: alpha=0 is {a0_err:.2e} from the content path")
+
+    ms_frame = cuda_ms(lambda: cascade.stylize(params, batch, cache, ALPHA, cfg), 3) / MICROBATCH
+    emit({"phase": "main_adain", "config": "CascadeConfig(transform='adain')", "size": SIZE,
+          "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA, "launches": counts,
+          "first_run_wall_s": wall, "batch1_vs_batch6_bitwise_equal": True,
+          "alpha0_vs_content_path_max_abs": a0_err,
+          "alpha0_equals_content_path_bitwise": bool(torch.equal(out_a0, round_trip)),
+          "levels_moments_vs_float64": levels, "ms_per_frame_b4": ms_frame,
+          "precompute_style_ms": cuda_ms(lambda: cascade.precompute_style(params["encoder"], style,
+                                                                          cfg), 3),
+          "stages_b4_ms": unfused_stages(params, batch, cache, cfg),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+    return out, cache, cfg
+
+
+ADAIN_FUSED = dict(compute_dtype="bfloat16", method="newton_schulz_fast", fuse_junction=True,
+                   transform="adain")
+
+
+def phase_main_adain_fused(params, content, style, out_f32, cache_f32, cfg_f32):
+    """AdaIN on the bf16 fused route: the bf16 head and junctions, and the
+    tail with each image's diagonal AdaIN affine folded into its weights;
+    held to main_adain with the reference's bf16 gates."""
+    cfg = cascade.CascadeConfig(**ADAIN_FUSED)
+    cache, out, counts, wall = drive(params, content, style, cfg)
+    n_chunks = -(-N_CONTENT // MICROBATCH)
+    expected = {**NO_LAUNCHES, "centered_gram": 5 * (1 + n_chunks), "encoder_head_bf16": n_chunks,
+                "junction_bf16": 3 * n_chunks, "decoder_tail_bf16": n_chunks}
+    check(counts == expected, f"main_adain_fused launched {counts}, expected {expected}")
+    route_checks(params, content, cache, cfg, out, "main_adain_fused")
+    d = (out - out_f32).abs().flatten()
+    median, q99 = float(d.median()), float(torch.quantile(d[::4], 0.99))
+    check(median < COMPOSED_MEDIAN_LIMIT, f"main_adain_fused vs main_adain median {median:.3f}")
+
+    levels = {}
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    x = batch
+    for level in cfg.relu_targets:
+        one16 = cascade.CascadeConfig(relu_targets=(level,), **ADAIN_FUSED)
+        one32 = cascade.CascadeConfig(relu_targets=(level,), transform="adain")
+        y16 = cascade.stylize(params, x, cache, ALPHA, one16)
+        dl = (y16 - cascade.stylize(params, x, cache_f32, ALPHA, one32)).abs().flatten()
+        levels[level] = {"q99": float(torch.quantile(dl, 0.99)), "median": float(dl.median())}
+        check(levels[level]["q99"] < LEVEL_Q99_LIMIT, f"{level} bf16 AdaIN vs f32 q99 {levels[level]}")
+        if level == "relu1_1":  # the tail on this route's own features
+            with torch.no_grad():
+                f = vgg.encode_multi_nchw(params["encoder"], to_nchw(x).to(cfg.dtype),
+                                          ("relu1_1",))["relu1_1"].contiguous()
+                scale, bias = adain_ops.adain_transform_cn(f.flatten(2), cache[level].adain, ALPHA)
+                conv = params["decoders"][level]["dec_conv1_1"]
+                wf, bf = decoder.fold_affine_into_conv(scale, bias, conv["w"], conv["b"])
+                got = junction.decoder_tail_cuda(f, wf, bf, False)
+                tail = {"vs_float64_rule": bf16_agreement(
+                            got, junction._decoder_tail_plain(f, wf, bf, False, acc=torch.float64)),
+                        "vs_plain": bf16_agreement(got, junction._decoder_tail_plain(f, wf, bf, False))}
+            check(all(v["bitwise"] >= BF16_BITWISE and v["within_ulp"] == 1.0 for v in tail.values()),
+                  f"the AdaIN-folded bf16 tail: {tail}")
+        x = y16
+
+    fused = lambda: cascade.stylize(params, batch, cache, ALPHA, cfg)  # noqa: E731
+    f32 = lambda: cascade.stylize(params, batch, cache_f32, ALPHA, cfg_f32)  # noqa: E731
+    turns = [cuda_ms(fn, 3) / MICROBATCH for fn in (f32, fused, fused, f32)]
+    emit({"phase": "main_adain_fused", "config": f"CascadeConfig({ADAIN_FUSED})", "size": SIZE,
+          "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA, "launches": counts,
+          "first_run_wall_s": wall, "batch1_vs_batch6_bitwise_equal": True,
+          "vs_f32_median": median, "vs_f32_q99": q99, "levels_vs_f32_teacher_forced": levels,
+          "tail_adain_folded": tail, "ms_per_frame_b4": (turns[1] + turns[2]) / 2,
+          "ms_per_frame_b4_adain_f32": (turns[0] + turns[3]) / 2,
+          "ms_per_frame_b4_turns_f32_fused_fused_f32": turns,
+          "stages_b4_ms": fused_stages(params, batch, cache, cfg),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+
+# The swap at relu5_1 against a float64 evaluation on the same whitened maps:
+# the argmax at ≥ 99.9 % of the locations (near-tied patches may flip), and
+# where every patch covering a pixel agrees, the swapped map within 1e-5 of
+# the map's largest value.
+SWAP_ARGMAX_SHARE, SWAP_MAP_LIMIT = 0.999, 1e-5
+
+
+def phase_main_swap5(params, content, style, cache_main, cfg_main):
+    """swap5 with newton_schulz_pallas: Newton–Schulz and the Gram as on
+    main (the swap level's content and style whitening take one launch each),
+    the correlation and transposed convs in full f32."""
+    cfg = cascade.CascadeConfig(method="newton_schulz_pallas", swap5=True)
+    cache, out, counts, wall = drive(params, content, style, cfg)
+    n_chunks = -(-N_CONTENT // MICROBATCH)
+    # Per level one Newton–Schulz and one Gram for the style (at relu5_1 one
+    # decomposition gives both its kernels) and for each microbatch.
+    expected = {**NO_LAUNCHES, "ns_sqrtm": 5 * (1 + n_chunks), "centered_gram": 5 * (1 + n_chunks)}
+    check(counts == expected, f"main_swap5 launched {counts}, expected {expected}")
+    route_checks(params, content, cache, cfg, out, "main_swap5")
+
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    ps, stride, ss_alpha = cfg.ss_patch_size, cfg.ss_stride, cfg.ss_alpha
+    with torch.no_grad():
+        feats = vgg.encode_multi_nchw(params["encoder"], to_nchw(batch), ("relu5_1",))["relu5_1"]
+        b, c, h, w = feats.shape
+        x = feats.flatten(2)
+        w_c, mu_c = wct_ops.whitening_kernel_cn(x, method=cfg.method)
+        white = swap_ops.whiten_cn(x, w_c, mu_c).reshape(b, c, h, w)
+        fs_white = cache["relu5_1"].fs_white
+        filters, filters_n = swap_ops._filters(fs_white, ps, stride)
+        best = torch.cat([swap_ops._best_patches(white[i : i + 1], filters_n, stride)
+                          for i in range(b)])
+        f64 = filters.double()
+        fn64 = f64 / f64.flatten(1).norm(dim=1).clamp_min(1e-8)[:, None, None, None]
+        best64 = F.conv2d(white.double(), fn64, stride=stride).argmax(1)
+        agree = best == best64
+        share = float(agree.float().mean())
+        swapped = swap_ops.style_swap_nchw(white, fs_white, ss_alpha, ps, stride).double()
+        one_hot = F.one_hot(best64, f64.shape[0]).permute(0, 3, 1, 2).double()
+        ones = torch.ones((1, 1, ps, ps), dtype=torch.float64, device=DEV)
+        counts64 = F.conv_transpose2d(torch.ones_like(one_hot[:, :1]), ones, stride=stride)
+        recon = F.conv_transpose2d(one_hot, f64, stride=stride) / counts64
+        swapped64 = ss_alpha * recon + (1.0 - ss_alpha) * white.double()
+        covered_by_flip = F.conv_transpose2d((~agree).double()[:, None], ones, stride=stride) > 0
+        map_err = float(((swapped - swapped64).abs() * ~covered_by_flip).max()
+                        / swapped64.abs().max())
+        del one_hot, recon, swapped64
+    check(share >= SWAP_ARGMAX_SHARE, f"main_swap5: argmax agrees with float64 at {share:.5f}")
+    check(map_err <= SWAP_MAP_LIMIT, f"main_swap5: swapped map {map_err:.2e} from float64")
+
+    # ss_alpha = 0 leaves the whitened map as it is: the swap level is the
+    # plain WCT level, within main's bar against its plain twin.
+    one_swap = cascade.CascadeConfig(relu_targets=("relu5_1",), method=cfg.method, swap5=True,
+                                     ss_alpha=0.0)
+    one_wct = cascade.CascadeConfig(relu_targets=("relu5_1",), method=cfg.method)
+    y_swap = cascade.stylize(params, batch, cascade.precompute_style(params["encoder"], style,
+                                                                     one_swap), ALPHA, one_swap)
+    y_wct = cascade.stylize(params, batch, cache_main, ALPHA, one_wct)
+    d = (y_swap - y_wct).abs().flatten()
+    ss0 = {"q99": float(torch.quantile(d, 0.99)), "max": float(d.max())}
+    check(ss0["q99"] <= 5e-3, f"main_swap5: ss_alpha=0 vs the WCT level {ss0}")
+
+    # The swap's two convs at this shape, each under cuDNN and PyTorch's own
+    # conv, and the choice ops/convs.py made for it.
+    x0 = white[:1].contiguous()
+    one_hot = F.one_hot(best[:1], filters.shape[0]).permute(0, 3, 1, 2).float()
+    swap_convs = {}
+    for name, conv, key in (
+        ("correlation", lambda: F.conv2d(x0, filters_n, stride=stride),
+         ("conv2d", tuple(x0.shape), tuple(filters_n.shape), stride, x0.device)),
+        ("transposed", lambda: F.conv_transpose2d(one_hot, filters, stride=stride),
+         ("conv_transpose2d", tuple(one_hot.shape), tuple(filters.shape), stride, one_hot.dtype,
+          one_hot.device)),
+    ):
+        times = {}
+        for enabled in (True, False):
+            with convs._cudnn(enabled):
+                times["cudnn_ms" if enabled else "pytorch_ms"] = cuda_ms(conv, 5)
+        swap_convs[name] = {**times, "uses_cudnn": convs._CUDNN_OK.get(key)}
+    ms_frame = cuda_ms(lambda: cascade.stylize(params, batch, cache, ALPHA, cfg), 3) / MICROBATCH
+    emit({"phase": "main_swap5", "config": "CascadeConfig(method='newton_schulz_pallas', swap5=True)",
+          "size": SIZE, "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA,
+          "launches": counts, "first_run_wall_s": wall, "batch1_vs_batch6_bitwise_equal": True,
+          "relu5_1_patches": int(filters.shape[0]), "argmax_share_vs_float64": share,
+          "swapped_map_vs_float64_rel_max": map_err, "ss_alpha0_vs_wct_level": ss0,
+          "swap_convs_b1": swap_convs, "ms_per_frame_b4": ms_frame,
+          "stages_b4_ms": unfused_stages(params, batch, cache, cfg),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+
+class record_shapes:
+    """Within the block, each call of the Gram and Newton–Schulz entry
+    points the WCT calls (one kernel launch each on the card) records its
+    input's shape; the kernels and their counts are untouched."""
+
+    def __enter__(self):
+        self.shapes = {"centered_gram": [], "ns_sqrtm": []}
+        self.saved = gram.centered_gram_cn, sqrtm.newton_schulz_sqrtm
+
+        def wrap(fn, name):
+            def recorded(x, *a, **kw):
+                self.shapes[name].append(tuple(x.shape))
+                return fn(x, *a, **kw)
+            return recorded
+
+        gram.centered_gram_cn = wrap(self.saved[0], "centered_gram")
+        sqrtm.newton_schulz_sqrtm = wrap(self.saved[1], "ns_sqrtm")
+        return self.shapes
+
+    def __exit__(self, *exc):
+        gram.centered_gram_cn, sqrtm.newton_schulz_sqrtm = self.saved
+
+
+def phase_main_groups(params, content, style, name):
+    """wct_groups=4 with newton_schulz_pallas: one Gram launch and one
+    Newton–Schulz launch per level and call, on the groups of every image
+    at once ([B·4, C/4, N] and [B·4, C/4, C/4])."""
+    groups = 4
+    cfg = cascade.CascadeConfig(method="newton_schulz_pallas", wct_groups=groups)
+    with record_shapes() as shapes:
+        cache, out, counts, wall = drive(params, content, style, cfg)
+    n_chunks = -(-N_CONTENT // MICROBATCH)
+    expected = {**NO_LAUNCHES, "ns_sqrtm": 5 * (1 + n_chunks), "centered_gram": 5 * (1 + n_chunks)}
+    check(counts == expected, f"main_groups launched {counts}, expected {expected}")
+    want_gram = [(groups, vgg.TARGET_CHANNELS[t] // groups, (SIZE // vgg.TARGET_SCALE[t]) ** 2)
+                 for t in cfg.relu_targets]
+    want_gram += [(MICROBATCH * groups, *s[1:]) for s in want_gram] * n_chunks
+    want_ns = [(b, cg, cg) for b, cg, _ in want_gram]
+    check(shapes == {"centered_gram": want_gram, "ns_sqrtm": want_ns},
+          f"main_groups shapes {shapes}")
+    route_checks(params, content, cache, cfg, out, "main_groups")
+
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    levels = {}
+    with torch.no_grad():
+        x = to_nchw(batch)
+        for level in cfg.relu_targets:
+            feats = vgg.encode_multi_nchw(params["encoder"], x, (level,))[level]
+            f = feats.flatten(2)
+            cov, _ = wct_ops._grouped_gram_cn(f, groups)
+            b, c, n = f.shape
+            g64 = f.double().reshape(b * groups, c // groups, n)
+            g64 = g64 - g64.mean(-1, keepdim=True)
+            cov64 = g64 @ g64.mT / (n - 1)
+            del g64
+            a = (cov + wct_ops.DEFAULT_EPS * torch.eye(c // groups, device=DEV)).contiguous()
+            sq, _ = sqrtm.ns_sqrtm_cuda(a)
+            levels[level] = {"shape": list(a.shape),
+                             "cov_vs_float64_rel_fro": rel_fro(cov.double(), cov64),
+                             "ns_vs_float64_iteration": rel_fro(sq.double(), ns_float64(a, sqrtm.DEFAULT_ITERS)),
+                             "gram_ms": cuda_ms(lambda: gram.centered_gram_cuda(f.reshape(b * groups, c // groups, n)), 5),
+                             "ns_ms": cuda_ms(lambda: sqrtm.ns_sqrtm_cuda(a), 5)}
+            levels[level]["ns_bound_ms"] = ns_bound_ms(a.shape[0], a.shape[-1], sqrtm.DEFAULT_ITERS,
+                                                       tf32_peak(name), peaks(name)[1])[0]
+            check(levels[level]["cov_vs_float64_rel_fro"] <= GRAM_F64_LIMIT,
+                  f"main_groups {level} block covariances: {levels[level]}")
+            check(levels[level]["ns_vs_float64_iteration"] <= NS_F64_LIMIT,
+                  f"main_groups {level} Newton–Schulz: {levels[level]}")
+            x = decoder.decode_nchw(params["decoders"][level],
+                                    cascade._transform_level(feats, level, cache[level], ALPHA, cfg),
+                                    level)
+    ms_frame = cuda_ms(lambda: cascade.stylize(params, batch, cache, ALPHA, cfg), 3) / MICROBATCH
+    emit({"phase": "main_groups",
+          "config": "CascadeConfig(method='newton_schulz_pallas', wct_groups=4)", "size": SIZE,
+          "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA, "launches": counts,
+          "first_run_wall_s": wall, "batch1_vs_batch6_bitwise_equal": True,
+          "launch_shapes": {k: sorted(set(v)) for k, v in shapes.items()}, "levels_b4": levels,
+          "ms_per_frame_b4": ms_frame, "stages_b4_ms": unfused_stages(params, batch, cache, cfg),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+
+def keep_masks(f, rel):
+    """The rel_trunc keep mask of each image's covariance of ``f [B, C, N]``:
+    the cascade's (the Gram kernel, f32 eigh on the card) and float64's."""
+    cov, _ = wct_ops._gram_cn(f)
+    eye = torch.eye(cov.shape[-1], device=DEV)
+    s32 = torch.linalg.eigvalsh(cov + wct_ops.DEFAULT_EPS * eye)
+    f64 = f.double()
+    c64 = f64 - f64.mean(-1, keepdim=True)
+    s64 = torch.linalg.eigvalsh(c64 @ c64.mT / (f.shape[-1] - 1)
+                                + wct_ops.DEFAULT_EPS * eye.double())
+    return (wct_ops.keep_mask(s32, wct_ops.DEFAULT_TRUNC, rel=rel),
+            wct_ops.keep_mask(s64, wct_ops.DEFAULT_TRUNC, rel=rel))
+
+
+def phase_main_trunc(params, content, style):
+    """One batch of rel_trunc=1e-3 (eigh): every level's keep mask, content
+    and style, equals a float64 eigh's (wct_tpu/ops/wct.py:137-147)."""
+    cfg = cascade.CascadeConfig(rel_trunc=1e-3)
+    cache, out, counts, wall = drive(params, content[:MICROBATCH], style, cfg)
+    check(counts == {**NO_LAUNCHES, "centered_gram": 10}, f"main_trunc launched {counts}")
+    check(bool(torch.isfinite(out).all()) and float(out.min()) >= 0.0 and float(out.max()) <= 1.0,
+          "main_trunc: output not finite in [0, 1]")
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    levels = {}
+    with torch.no_grad():
+        style_feats = vgg.encode_multi_nchw(params["encoder"], to_nchw(torch.as_tensor(
+            style[None], device=DEV)), cfg.relu_targets)
+        x = to_nchw(batch)
+        for level in cfg.relu_targets:
+            feats = vgg.encode_multi_nchw(params["encoder"], x, (level,))[level]
+            row = {}
+            for side, f in (("content", feats.flatten(2)), ("style", style_feats[level].flatten(2))):
+                got, want = keep_masks(f, cfg.rel_trunc)
+                row[side] = {"kept": got.sum(-1).tolist(), "equal": bool(torch.equal(got, want))}
+            levels[level] = row
+            check(row["content"]["equal"] and row["style"]["equal"],
+                  f"main_trunc {level}: keep mask differs from float64's: {row}")
+            x = decoder.decode_nchw(params["decoders"][level],
+                                    cascade._transform_level(feats, level, cache[level], ALPHA, cfg),
+                                    level)
+    ms_frame = cuda_ms(lambda: cascade.stylize(params, batch, cache, ALPHA, cfg), 3) / MICROBATCH
+    emit({"phase": "main_trunc", "config": "CascadeConfig(rel_trunc=1e-3)", "size": SIZE,
+          "n_images": MICROBATCH, "alpha": ALPHA, "launches": counts, "first_run_wall_s": wall,
+          "keep_masks_equal_float64": levels, "ms_per_frame_b4": ms_frame,
+          "stages_b4_ms": unfused_stages(params, batch, cache, cfg),
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+
 def phase_cli():
+    """The CLI as users run it: the two routes of earlier slices, then
+    style-swap with luminance-only output and the style beside it, AdaIN
+    over a blend of two styles, and CORAL, one pair at a time."""
     work = ROOT / "build" / "chip_smoke"
-    c_dir, o_dir = work / "content", work / "out"
-    for d in (c_dir, o_dir):
+    c_dir, s_dir, o_dir = work / "content", work / "styles", work / "out"
+    for d in (c_dir, s_dir, o_dir):
         d.mkdir(parents=True, exist_ok=True)
         for f in d.iterdir():
             f.unlink()
@@ -1187,12 +1534,23 @@ def phase_cli():
     for i in range(2):
         images.save_img(c_dir / f"c{i}.png", rng.random((300, 256, 3)))
     images.save_img(work / "style.png", rng.random((256, 320, 3)))
-    for flags in (["--method", "newton_schulz_pallas"], ["--preset", "throughput"]):
+    images.save_img(s_dir / "s0.png", rng.random((256, 320, 3)))
+    images.save_img(s_dir / "s1.png", rng.random((288, 256, 3)) * 0.5 + 0.3)
+    one, two = work / "style.png", s_dir
+    runs = [  # flags, styles, outputs, their shape
+        (["--method", "newton_schulz_pallas"], one, 2, (300, 256, 3)),
+        (["--preset", "throughput"], one, 2, (300, 256, 3)),
+        (["--swap5", "--method", "newton_schulz_pallas", "--keep-colors", "--concat"], one, 2,
+         (300, 256 + 300, 3)),
+        (["--adain", "--interp-weights", "0.5", "0.5"], two, 2, (300, 256, 3)),
+        (["--coral"], two, 4, (300, 256, 3)),
+    ]
+    for flags, styles, n_out, shape in runs:
         for f in o_dir.iterdir():
             f.unlink()
         cmd = [sys.executable, "-m", "wct_tpu_torch.cli.stylize",
                "--weights", "weights/bundle.npz", *flags,
-               "--content-path", str(c_dir), "--style-path", str(work / "style.png"),
+               "--content-path", str(c_dir), "--style-path", str(styles),
                "--out-path", str(o_dir), "--content-size", "256", "--batch-size", "2",
                "--alpha", str(ALPHA), "--device", DEV]
         t0 = time.perf_counter()
@@ -1200,9 +1558,9 @@ def phase_cli():
         secs = time.perf_counter() - t0
         check(proc.returncode == 0, f"CLI failed (rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
         outs = images.get_files(o_dir)
-        check(len(outs) == 2, f"CLI wrote {len(outs)} outputs, expected 2")
+        check(len(outs) == n_out, f"CLI {flags} wrote {len(outs)} outputs, expected {n_out}")
         imgs = [images.get_img(p) for p in outs]
-        check(all(i.shape == (300, 256, 3) for i in imgs), f"CLI output shapes {[i.shape for i in imgs]}")
+        check(all(i.shape == shape for i in imgs), f"CLI {flags} output shapes {[i.shape for i in imgs]}")
         check(all(np.isfinite(i).all() and i.std() > 0.01 for i in imgs), "CLI wrote a flat image")
         emit({"phase": "cli", "flags": flags, "seconds": secs,
               "outputs": [str(Path(p).relative_to(ROOT)) for p in outs]})
@@ -1238,6 +1596,11 @@ def main() -> int:
         out_bf16, cache_bf16, cfg_bf16)
     counts.update({f"{k}_bf16": counts_bf16_fused[f"{k}_bf16"] for k in BY_DTYPE})
     phase_main_eigh(params, content, style, cache, cfg)
+    out_adain, cache_adain, cfg_adain = phase_main_adain(params, content, style)
+    phase_main_adain_fused(params, content, style, out_adain, cache_adain, cfg_adain)
+    phase_main_swap5(params, content, style, cache, cfg)
+    phase_main_groups(params, content, style, name)
+    phase_main_trunc(params, content, style)
     phase_cli()
     small = "wct_tpu_torch/csrc/conv3x3_small.cu"
     head = ("wct_tpu_torch/csrc/encoder_head.cu", "wct_tpu/ops/junction_pallas.py:368")

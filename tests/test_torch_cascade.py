@@ -9,6 +9,7 @@ q99 2e-4 for the five-level cascade, which amplifies ≈100×); measured
 port-vs-JAX values sit beside each bound.
 """
 
+import dataclasses
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -169,16 +170,33 @@ def test_config_same_value_errors_as_reference(kw):
      dict(pack2_junction=True, pack2_tail_only=True)],
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
 )
-def test_config_unported_options_raise_not_implemented(kw):
+def test_config_unported_options_raise_not_implemented(setup, kw):
     """Options the port does not carry raise, naming their ROADMAP.md
-    item; bf16 with ``fuse_junction``, which it carries, builds (the route
-    is held against the reference in tests/test_torch_junction_bf16.py)."""
-    jcascade.CascadeConfig(**kw)  # legal in the reference
+    item. Those it carries build: bf16 with ``fuse_junction`` (held
+    against the reference in tests/test_torch_junction_bf16.py), and
+    AdaIN, swap5, grouped WCT and the soft and relative truncation modes,
+    each held here to the reference on one level at α=0.6, relu5_1 for
+    the swap and relu1_1 for the others (measured q99 ≤ 8.1e-7, max ≤
+    1.6e-6; every level in tests/test_torch_cascade_variants.py and
+    test_torch_wct_modes.py)."""
+    jcfg = jcascade.CascadeConfig(**kw)  # legal in the reference
     if kw == dict(compute_dtype="bfloat16", fuse_junction=True):
         cfg = tcascade.CascadeConfig(**kw)
         assert cfg.fuse_junction and cfg.compute_dtype == "bfloat16"
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
+    if not (kw.keys() & {"pack2_junction", "fold_transform", "ring_conv"}):
+        jparams, tparams, content, style = setup
+        one = dict(kw, relu_targets=("relu5_1",) if kw.get("swap5") else ("relu1_1",))
+        ref = np.asarray(jcascade.stylize_pair(
+            jparams, jnp.asarray(content), jnp.asarray(style), 0.6,
+            jcascade.CascadeConfig(**one)))
+        got = tcascade.stylize_pair(tparams, content, style, 0.6, tcascade.CascadeConfig(**one))
+        d = np.abs(got.numpy().astype(np.float64) - ref)
+        assert np.quantile(d, 0.99) <= 1e-4 and d.max() <= 1e-3, (np.quantile(d, 0.99), d.max())
+        assert tcascade.CascadeConfig(**kw) == tcascade.CascadeConfig(**{
+            f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tcascade.CascadeConfig)})
+        return
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
         tcascade.CascadeConfig(**kw)
 
 

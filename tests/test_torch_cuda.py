@@ -657,3 +657,129 @@ def test_throughput_cascade_on_card(card):
         assert torch.equal(alone[0], outs[name][2])
     assert outs["fast"].dtype == torch.float32
     assert float((outs["fast"] - outs["fid"]).abs().median()) < 0.2
+
+
+# ---- grouped WCT, AdaIN and style-swap: the existing kernels at new shapes ----
+
+
+def _ns_float64(a, iters=sqrtm.DEFAULT_ITERS, reg=sqrtm.DEFAULT_REG):
+    """sqrt(A) by the kernel's coupled iteration, every step in float64."""
+    c = a.shape[-1]
+    a64 = a.double()
+    eye = torch.eye(c, dtype=torch.float64, device=a.device)
+    a64 = a64 + (reg * a64.diagonal(dim1=-2, dim2=-1).sum(-1) / c)[:, None, None] * eye
+    norm = a64.abs().sum(-1).amax(-1)[:, None, None]
+    y, z = a64 / norm, eye.expand_as(a64)
+    for _ in range(iters):
+        t = 1.5 * eye - 0.5 * z @ y
+        y, z = y @ t, t @ z
+    return y * norm.sqrt()
+
+
+@pytest.mark.parametrize("bg", [16, 64, 256])
+@pytest.mark.parametrize("cg", [8, 16, 32])
+def test_grouped_gram_and_ns_kernels_at_small_channels(card, cg, bg):
+    """Grouped WCT hands the Gram ``[B·G, C/G, N]`` and Newton–Schulz
+    ``[B·G, C/G, C/G]``, down to C/G = 8 and up to 4·64 matrices: the Gram
+    ≤ 1e-6 from float64 and Newton–Schulz ≤ 5e-5 from its float64 iteration,
+    both the same bits alone and in the batch."""
+    rng = np.random.default_rng(cg * bg)
+    x = torch.from_numpy(np.maximum(rng.standard_normal((bg, cg, 4099)), 0).astype(np.float32))
+    x = x.to(card)
+    g, mean = gram.centered_gram_cn(x)
+    x64 = x.double()
+    c64 = x64 - x64.mean(-1, keepdim=True)
+    assert _gram_rel(g.double(), c64 @ c64.mT) <= 1e-6
+    alone, _ = gram.centered_gram_cn(x[-1:].contiguous())
+    assert torch.equal(alone[0], g[-1])
+    cov = (g / 4098 + 1e-8 * torch.eye(cg, device=card)).contiguous()
+    before = sqrtm.ns_sqrtm_cuda.launches
+    sq, isq = sqrtm.newton_schulz_sqrtm(cov, use_kernel=True)
+    assert sqrtm.ns_sqrtm_cuda.launches == before + 1
+    torch.cuda.synchronize()
+    assert _rel(sq.double(), _ns_float64(cov)) <= 5e-5
+    sq_p, isq_p = sqrtm._ns_plain(cov, sqrtm.DEFAULT_ITERS, sqrtm.DEFAULT_REG)
+    assert _rel(sq, sq_p) <= 1e-4 and _rel(isq, isq_p) <= 1e-4
+    alone = sqrtm.ns_sqrtm_cuda(cov[-1:].contiguous())
+    assert torch.equal(alone[0][0], sq[-1]) and torch.equal(alone[1][0], isq[-1])
+
+
+def test_grouped_whitening_launches_once_per_call(card):
+    """A grouped batch is one Gram launch and one Newton–Schulz launch."""
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(np.maximum(rng.standard_normal((4, 64, 1024)), 0).astype(np.float32))
+    x = x.to(card)
+    before = (gram.centered_gram_cuda.launches, sqrtm.ns_sqrtm_cuda.launches)
+    w, mu = wct_ops.whitening_kernel_cn(x, method="newton_schulz_pallas", groups=4)
+    assert (gram.centered_gram_cuda.launches, sqrtm.ns_sqrtm_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert tuple(w.shape) == (4, 4, 16, 16) and tuple(mu.shape) == (4, 64)
+    w_p, mu_p = wct_ops.whitening_kernel_cn(x.cpu(), method="newton_schulz_pallas", groups=4)
+    assert _rel(w.cpu().flatten(0, 1), w_p.flatten(0, 1)) <= 1e-4
+
+
+def test_moments_on_card_are_the_gram_diagonal(card):
+    """AdaIN's moments on the card: the centred Gram's mean and diagonal,
+    ≤ 1e-6 from float64, the same bits alone and in the batch."""
+    from wct_tpu_torch.ops import reductions
+
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(np.maximum(rng.standard_normal((4, 64, 65536)), 0).astype(np.float32))
+    x = x.to(card)
+    before = gram.centered_gram_cuda.launches
+    mean, var = gram.moments_cn(x)
+    assert gram.centered_gram_cuda.launches == before + 1
+    x64 = x.double()
+    assert float((var.double() - x64.var(-1, unbiased=False)).abs().max()) <= 1e-6 * float(
+        x64.var(-1).max())
+    assert float((mean.double() - x64.mean(-1)).abs().max()) <= 1e-6 * float(x64.mean(-1).max())
+    alone = gram.moments_cn(x[1:2])
+    assert torch.equal(alone[1][0], var[1])
+    plain = reductions.moments0(x.mT)
+    assert float((plain[1] - var).abs().max()) <= 1e-5 * float(var.max())
+
+
+def test_style_swap_on_card_matches_its_cpu_run(card):
+    """The correlation, the argmax and the transposed convs on the card
+    (full f32, no TF32) against the same function on the CPU: the same
+    argmax at every location and the map within 1e-5 of its max."""
+    from wct_tpu_torch.ops import style_swap
+
+    rng = np.random.default_rng(3)
+    fc = torch.from_numpy(rng.standard_normal((2, 64, 16, 16)).astype(np.float32))
+    fs = torch.from_numpy(rng.standard_normal((1, 64, 14, 15)).astype(np.float32))
+    for stride in (1, 2):
+        _, fn = style_swap._filters(fs, 3, stride)
+        _, fn_card = style_swap._filters(fs.to(card), 3, stride)
+        for i in range(2):
+            best = style_swap._best_patches(fc[i : i + 1], fn, stride)
+            best_card = style_swap._best_patches(fc[i : i + 1].to(card), fn_card, stride)
+            assert torch.equal(best_card.cpu(), best)
+        got = style_swap.style_swap_nchw(fc.to(card), fs.to(card), 0.7, 3, stride).cpu()
+        ref = style_swap.style_swap_nchw(fc, fs, 0.7, 3, stride)
+        assert float((got - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+def test_adain_folded_bf16_tail_against_float64_rule(card):
+    """The fused relu1_1 tail with AdaIN's diagonal affine folded into its
+    bf16 per-image weights (in f32): the kernel against a float64
+    evaluation of the bf16 rule and against plain, ≥ 99 % bitwise and all
+    within one bf16 ulp."""
+    from wct_tpu_torch.models import decoder
+    from wct_tpu_torch.ops import adain
+
+    rng = np.random.default_rng(4)
+    f = torch.from_numpy(np.maximum(rng.standard_normal((4, 64, 128, 128)), 0).astype(np.float32))
+    f = (f * 3).to(card).to(torch.bfloat16)
+    style = torch.from_numpy((rng.random((1, 64, 900)) * 2).astype(np.float32)).to(card)
+    scale, bias = adain.adain_transform_cn(f.flatten(2), adain.adain_stats_cn(style), 0.8)
+    w = torch.from_numpy(((rng.random((3, 64, 3, 3)) - 0.5) * 0.2).astype(np.float32)).to(card)
+    b = torch.from_numpy(rng.random(3).astype(np.float32)).to(card)
+    wf, bf = decoder.fold_affine_into_conv(scale, bias, w, b)
+    got = junction.decoder_tail_cuda(f, wf, bf, False)
+    ref64 = junction._decoder_tail_plain(f, wf, bf, False, acc=torch.float64)
+    ref = junction._decoder_tail_plain(f, wf, bf, False)
+    torch.cuda.synchronize()
+    for r in (ref64, ref):
+        bitwise, within, _ = _agreement(got, r)
+        assert bitwise >= 0.99 and within == 1.0, (bitwise, within)

@@ -36,7 +36,8 @@ def test_port_imports_without_jax_loaded():
         "import wct_tpu_torch.models, wct_tpu_torch.cli.stylize, wct_tpu_torch.ops._build\n"
         "import wct_tpu_torch.tools.profile_convs, wct_tpu_torch.ops.junction\n"
         "import wct_tpu_torch.tools.profile_sqrtm, wct_tpu_torch.ops.conv_small\n"
-        "import wct_tpu_torch.ops.gram\n"
+        "import wct_tpu_torch.ops.gram, wct_tpu_torch.ops.adain, wct_tpu_torch.ops.style_swap\n"
+        "import wct_tpu_torch.utils.colors\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'wct_tpu', 'scripts', 'triton')]\n"
         "assert not bad, bad\n"
@@ -104,7 +105,9 @@ def test_cli_and_smoke_refuse_to_run_without_card(tmp_path):
 def test_new_kernel_modules_are_scanned():
     names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
     assert {"wct_tpu_torch/ops/conv_small.py", "wct_tpu_torch/ops/gram.py",
-            "wct_tpu_torch/tools/profile_sqrtm.py", "chip_smoke.py"} <= names
+            "wct_tpu_torch/tools/profile_sqrtm.py", "chip_smoke.py",
+            "wct_tpu_torch/ops/adain.py", "wct_tpu_torch/ops/style_swap.py",
+            "wct_tpu_torch/utils/colors.py"} <= names
 
 
 @pytest.mark.parametrize(

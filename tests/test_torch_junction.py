@@ -137,10 +137,26 @@ def test_wct_transform(method, alpha):
 
 
 def test_wct_transform_grouped_not_ported():
-    fc = torch.rand(4, 4, 8)
-    stats = twct.style_stats(fc)
-    with pytest.raises(NotImplementedError, match="item 4b"):
-        twct.wct_transform(fc, stats, 0.5, groups=2)
+    """Grouped WCT is ported: its affine is the dense block-diagonal
+    expansion the reference gives the fold (measured 1.4e-6 of the max),
+    and ungrouped style statistics are refused with the reference's error."""
+    rng = np.random.default_rng(6)
+    fc = rng.random((6, 5, 8)).astype(np.float32)
+    fs = rng.random((5, 7, 8)).astype(np.float32)
+    jstats = jwct.style_stats(jnp.asarray(fs), groups=2)
+    tstats = twct.style_stats(torch.from_numpy(fs), groups=2)
+    jm, jb = jwct.wct_transform(jnp.asarray(fc), jstats, 0.5, groups=2)
+    tm, tb = twct.wct_transform(torch.from_numpy(fc), tstats, 0.5, groups=2)
+    assert tuple(tm.shape) == (8, 8)
+    assert not tm[:4, 4:].any() and not tm[4:, :4].any()
+    assert _rel(tm.numpy(), jm) <= 1e-5
+    assert np.abs(tb.numpy() - np.asarray(jb)).max() <= 1e-5 * max(1.0, np.abs(jb).max())
+    with pytest.raises(ValueError) as ref:
+        jwct.wct_transform(jnp.asarray(fc), jwct.style_stats(jnp.asarray(fs)), 0.5, groups=2)
+    with pytest.raises(ValueError) as got:
+        twct.wct_transform(torch.from_numpy(fc), twct.style_stats(torch.from_numpy(fs)), 0.5,
+                           groups=2)
+    assert str(got.value) == str(ref.value)
 
 
 @pytest.mark.parametrize("shape", [(2, 48, 32), (1, 16, 16)], ids=["48x32", "one_tile"])

@@ -117,6 +117,14 @@ def test_same_value_errors_as_reference(kw):
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
 )
 def test_unported_modes_raise_not_implemented(kw):
+    """The truncation modes and grouped WCT are ported: the style statistics
+    of each match the reference's (tests/test_torch_wct_modes.py holds the
+    rest of each mode)."""
     fc, fs = _feats(16, seed=5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item"):
-        twct.style_stats(torch.from_numpy(fs), **kw)
+    ref = jwct.style_stats(jnp.asarray(fs), **kw)
+    got = twct.style_stats(torch.from_numpy(fs), **kw)
+    _close(got.kernel.numpy(), ref.kernel)
+    _close(got.mean.numpy(), ref.mean)
+    w_kw = {k: v for k, v in kw.items() if k != "trunc_topk"}
+    _close(twct.wct_from_stats(torch.from_numpy(fc), got, 0.6, **w_kw).numpy(),
+           jwct.wct_from_stats(jnp.asarray(fc), ref, 0.6, **w_kw))

@@ -1,7 +1,10 @@
 """Shared CLI plumbing: flags → CascadeConfig, device, weight loading.
 
-The flags are those of ``wct_tpu/cli/common.py`` that are ported so
-far, plus ``--device``. ``--preset`` keeps the JAX package's table
+The flags are those of ``wct_tpu/cli/common.py`` but ``--checkpoints``
+and ``--vgg-path`` (they read converted checkpoints, ROADMAP.md queue 1
+item 11), plus ``--device``. ``--fold`` and ``--ring-conv`` are
+accepted and raise ``NotImplementedError`` naming item 11, as their
+``CascadeConfig`` fields do. ``--preset`` keeps the JAX package's table
 except for ``pack2_junction``, a rewrite for the TPU's 128 lanes that
 the throughput preset sets there and that is not ported; and here an
 explicit ``--dtype``, ``--method`` or ``--[no-]compose-conv0`` wins
@@ -32,6 +35,11 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
     )
     p.add_argument("--alpha", type=float, default=1.0)
     p.add_argument("--passes", type=int, default=1)
+    p.add_argument("--adain", action="store_true", help="AdaIN instead of WCT")
+    p.add_argument("--swap5", action="store_true", help="style-swap at relu5_1")
+    p.add_argument("--ss-alpha", type=float, default=0.6)
+    p.add_argument("--ss-patch-size", type=int, default=3)
+    p.add_argument("--ss-stride", type=int, default=1)
     p.add_argument(
         "--method",
         choices=[
@@ -60,6 +68,45 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
         "float32 convs in full float32 here (cuDNN has no three-pass "
         "mode, and TF32 would be a different result). Ignored for "
         "--dtype bfloat16",
+    )
+    p.add_argument(
+        "--soft-trunc",
+        action="store_true",
+        help="continuous eigenvalue filter instead of the hard 1e-5 "
+        "truncation (batch-stable on rank-deficient features; default "
+        "is exact reference behavior)",
+    )
+    p.add_argument(
+        "--rel-trunc",
+        type=float,
+        default=None,
+        metavar="R",
+        help="RELATIVE eigenvalue threshold: keep modes with "
+        "s > R*s_max instead of the reference's absolute 1e-5. The "
+        "cross-solver-reproducible truncation mode: at R=1e-3 the keep "
+        "mask of an f32 eigh matches a float64 one. Requires --method "
+        "eigh; exclusive with --soft-trunc",
+    )
+    p.add_argument(
+        "--wct-groups",
+        type=int,
+        default=1,
+        help="grouped (block-diagonal) WCT: split channels into G "
+        "independent groups (1 = exact reference WCT)",
+    )
+    p.add_argument(
+        "--fold",
+        action=argparse.BooleanOptionalAction,
+        default=None,
+        help="fold the per-image WCT/AdaIN affine into the decoder's "
+        "first conv at every level up to 128 channels: not ported "
+        "(ROADMAP.md queue 1 item 11)",
+    )
+    p.add_argument(
+        "--ring-conv",
+        action="store_true",
+        help="reflect convs without a padded copy: not ported "
+        "(ROADMAP.md queue 1 item 11)",
     )
     p.add_argument(
         "--preset",
@@ -131,11 +178,21 @@ def config_from_args(args: argparse.Namespace) -> cascade.CascadeConfig:
     dtype, method, compose0 = PRESETS[args.preset or "fidelity"]
     return cascade.CascadeConfig(
         relu_targets=tuple(args.relu_targets),
+        transform="adain" if args.adain else "wct",
+        swap5=args.swap5,
+        ss_alpha=args.ss_alpha,
+        ss_patch_size=args.ss_patch_size,
+        ss_stride=args.ss_stride,
         passes=args.passes,
         method=method if args.method is None else args.method,
         compute_dtype=dtype if args.dtype is None else args.dtype,
         conv_precision=args.conv_precision,
+        wct_groups=args.wct_groups,
+        soft_trunc=args.soft_trunc,
+        rel_trunc=args.rel_trunc,
         ns_iters=_parse_ns_iters(args.ns_iters),
+        fold_transform=bool(args.fold),
+        ring_conv=args.ring_conv,
         compose_conv0=compose0 if args.compose_conv0 is None else args.compose_conv0,
     )
 

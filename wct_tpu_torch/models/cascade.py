@@ -5,7 +5,7 @@ Counterpart of ``wct_tpu/models/cascade.py``: content flows relu5_1 →
 ``alpha`` against the cached style statistics, and decodes. The style
 is encoded once (``precompute_style``, one trunk sweep for all levels).
 
-Ported: the unpacked WCT path in f32 and in bf16
+Ported: the unpacked path in f32 and in bf16
 (``compute_dtype='bfloat16'``: bf16 activations through every conv,
 f32 statistics and kernels, f32 images in and out), unfused
 (``cascade.py:526-557``, ``645-647``, ``705-715``) and with
@@ -14,7 +14,11 @@ f32 statistics and kernels, f32 images in and out), unfused
 runs in the kernels of ``ops/junction.py`` in the activations' type
 (bf16 ones round as the TPU kernels do, once per conv after the f32
 bias: ``ops/junction.py`` says how that differs from the unfused bf16
-conv).
+conv). Each level's transform is the WCT (with any truncation mode and
+``wct_groups``), AdaIN (``transform='adain'``), or at relu5_1 with
+``swap5`` the style-swap; the fused relu1_1 tail folds the WCT's or
+AdaIN's per-image affine into its conv. Several styles blend through
+``interpolate_style_caches`` and ``stylize_interp``.
 Every ``CascadeConfig`` field and check is kept, so the same illegal
 combinations raise the same ``ValueError``; options that are legal but
 not ported yet raise ``NotImplementedError`` naming the ROADMAP.md item
@@ -34,7 +38,9 @@ import torch.nn.functional as F
 
 from wct_tpu_torch.models import decoder as dec_lib
 from wct_tpu_torch.models import vgg
+from wct_tpu_torch.ops import adain as adain_ops
 from wct_tpu_torch.ops import junction as junction_ops
+from wct_tpu_torch.ops import style_swap as swap_ops
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import to_nchw, to_nhwc
 from wct_tpu_torch.utils.device import params_device, resolve_device, set_numerics
@@ -185,11 +191,6 @@ class CascadeConfig:
                 "segment)"
             )
         unported = (
-            (self.transform == "adain", "transform='adain'", wct_ops.ITEM_ADAIN_SWAP),
-            (self.swap5, "swap5", wct_ops.ITEM_ADAIN_SWAP),
-            (self.wct_groups > 1, "wct_groups > 1", wct_ops.ITEM_TRUNC),
-            (self.soft_trunc, "soft_trunc", wct_ops.ITEM_TRUNC),
-            (self.rel_trunc is not None, "rel_trunc", wct_ops.ITEM_TRUNC),
             (self.pack2_junction, "pack2_junction", wct_ops.ITEM_VARIANTS),
             (self.fold_transform, "fold_transform", wct_ops.ITEM_VARIANTS),
             (self.ring_conv, "ring_conv", wct_ops.ITEM_VARIANTS),
@@ -214,9 +215,14 @@ class CascadeConfig:
 
 @dataclasses.dataclass(frozen=True)
 class LevelStyle:
-    """Per-level cached style statistics (the WCT coloring stats)."""
+    """Per-level cached style statistics, what the configuration needs:
+    ``stats`` for the WCT (and the swap level's coloring), ``adain`` for
+    ``transform='adain'``, ``fs_white`` (the whitened style map, NCHW
+    ``[1, C, Hs, Ws]`` f32) for the swap5 level only."""
 
-    stats: wct_ops.StyleStats
+    stats: wct_ops.StyleStats | None = None
+    adain: adain_ops.AdainStats | None = None
+    fs_white: torch.Tensor | None = None
 
 
 StyleCache = dict[str, LevelStyle]  # relu target → LevelStyle
@@ -247,7 +253,9 @@ def precompute_style(
     """Encode a style image ``[H, W, 3]`` once; cache per-level statistics.
 
     One trunk sweep (``encode_multi``) feeds every cascade level. The
-    image is cast to ``cfg.dtype``; the statistics are f32.
+    image is cast to ``cfg.dtype``; the statistics are f32. The swap5
+    level takes its whitening and coloring kernels from one
+    decomposition (``wct_tpu/models/cascade.py:354-372``).
     """
     set_numerics(cfg.dtype)
     x = _as_images(style_img, encoder_params["conv1_1"]["w"].device)
@@ -255,24 +263,96 @@ def precompute_style(
         encoder_params, to_nchw(x[None]).to(cfg.dtype), cfg.relu_targets,
         compose_pre=cfg.compose_conv0,
     )
-    return {
-        level: LevelStyle(
-            stats=wct_ops.style_stats_cn(feats[level].flatten(2), method=cfg.method)
-        )
-        for level in cfg.relu_targets
-    }
+    cache: StyleCache = {}
+    for level in cfg.relu_targets:
+        f = feats[level].flatten(2)
+        if cfg.swap5 and level == "relu5_1":
+            w_s, k_s, mu_s = wct_ops.whiten_color_kernels_cn(
+                f, method=cfg.method, soft_trunc=cfg.soft_trunc, rel_trunc=cfg.rel_trunc,
+            )
+            cache[level] = LevelStyle(
+                stats=wct_ops.StyleStats(kernel=k_s[0], mean=mu_s[0]),
+                fs_white=swap_ops.whiten_cn(f, w_s, mu_s).reshape(feats[level].shape),
+            )
+        elif cfg.transform == "adain":
+            cache[level] = LevelStyle(adain=adain_ops.adain_stats_cn(f))
+        else:
+            cache[level] = LevelStyle(stats=wct_ops.style_stats_cn(
+                f, method=cfg.method, groups=cfg.wct_groups, soft_trunc=cfg.soft_trunc,
+                rel_trunc=cfg.rel_trunc,
+            ))
+    return cache
+
+
+@torch.no_grad()
+def interpolate_style_caches(
+    caches: list[StyleCache], weights, cfg: CascadeConfig
+) -> StyleCache:
+    """Blend K styles' caches with ``weights [K]``.
+
+    The WCT's coloring and AdaIN are linear in their statistics, so
+    blending the cached statistics blends the colored features. The
+    swap level's whitened map is not blendable: it keeps the first
+    style's (``wct_tpu/models/cascade.py:377-406``).
+    """
+    out: StyleCache = {}
+    for level in cfg.relu_targets:
+        entries = [c[level] for c in caches]
+        stats = adain = None
+        if entries[0].stats is not None:
+            stats = wct_ops.interpolate_stats([e.stats for e in entries], weights)
+        if entries[0].adain is not None:
+            means = torch.stack([e.adain.mean for e in entries])
+            stds = torch.stack([e.adain.std for e in entries])
+            w = torch.as_tensor(weights, device=means.device).to(means.dtype)
+            adain = adain_ops.AdainStats(
+                mean=torch.tensordot(w, means, 1), std=torch.tensordot(w, stds, 1)
+            )
+        out[level] = LevelStyle(stats=stats, adain=adain, fs_white=entries[0].fs_white)
+    return out
 
 
 def _transform_level(
     feats: torch.Tensor, level: str, style: LevelStyle, alpha, cfg: CascadeConfig
 ) -> torch.Tensor:
-    """The WCT at one level on a batch of NCHW features."""
+    """The configured transform at one level on a batch of NCHW features:
+    at relu5_1 with ``swap5`` the style-swap, else AdaIN or the WCT."""
     b, c, h, w = feats.shape
-    out = wct_ops.wct_from_stats_cn(
-        feats.reshape(b, c, h * w), style.stats, alpha, method=cfg.method,
-        ns_iters=cfg.ns_iters_for(level),
-    )
+    x = feats.reshape(b, c, h * w)
+    if cfg.swap5 and level == "relu5_1":
+        w_c, mu_c = wct_ops.whitening_kernel_cn(
+            x, method=cfg.method, soft_trunc=cfg.soft_trunc,
+            ns_iters=cfg.ns_iters_for(level), rel_trunc=cfg.rel_trunc,
+        )
+        white = swap_ops.whiten_cn(x, w_c, mu_c).reshape(b, c, h, w)
+        swapped = swap_ops.style_swap_nchw(
+            white, style.fs_white, cfg.ss_alpha, cfg.ss_patch_size, cfg.ss_stride
+        ).reshape(b, c, h * w)
+        colored = style.stats.kernel.float().mT @ swapped + style.stats.mean.float()[:, None]
+        alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+        out = (alpha * colored + (1.0 - alpha) * x.float()).to(x.dtype)
+    elif cfg.transform == "adain":
+        out = adain_ops.adain_from_stats_cn(x, style.adain, alpha)
+    else:
+        out = wct_ops.wct_from_stats_cn(
+            x, style.stats, alpha, method=cfg.method, groups=cfg.wct_groups,
+            soft_trunc=cfg.soft_trunc, ns_iters=cfg.ns_iters_for(level),
+            rel_trunc=cfg.rel_trunc,
+        )
     return out.reshape(b, c, h, w)
+
+
+def _level_affine(feats: torch.Tensor, level: str, style: LevelStyle, alpha, cfg: CascadeConfig):
+    """The level's transform of NCHW ``feats`` as per-image affines: AdaIN's
+    diagonal ``(scale [B, C], bias [B, C])`` or the WCT's ``(M [B, C, C],
+    bias [B, C])``, for ``decoder.fold_affine_into_conv``."""
+    x = feats.flatten(2)
+    if cfg.transform == "adain":
+        return adain_ops.adain_transform_cn(x, style.adain, alpha)
+    return wct_ops.wct_transform_cn(
+        x, style.stats, alpha, method=cfg.method, groups=cfg.wct_groups,
+        soft_trunc=cfg.soft_trunc, ns_iters=cfg.ns_iters_for(level), rel_trunc=cfg.rel_trunc,
+    )
 
 
 def stylize_fn(
@@ -323,15 +403,11 @@ def stylize_fn(
             dec_p = params["decoders"][level]
             layers = dec_lib.decoder_layers(level)
             nxt = cfg.relu_targets[li + 1] if li + 1 < len(cfg.relu_targets) else None
-            if junction_ok and len(layers) == 1:
-                # Single-conv decoder (relu1_1): fold each image's WCT
-                # affine into the conv; the apply matmul and the 64→3
+            if junction_ok and len(layers) == 1 and not (cfg.swap5 and level == "relu5_1"):
+                # Single-conv decoder (relu1_1): fold each image's WCT or
+                # AdaIN affine into the conv; the apply and the 64→3
                 # conv collapse into the per-image-weight tail kernel.
-                b, c, fh, fw = feats.shape
-                m, bias = wct_ops.wct_transform_cn(
-                    feats.reshape(b, c, fh * fw), style.stats, alpha, method=cfg.method,
-                    ns_iters=cfg.ns_iters_for(level),
-                )
+                m, bias = _level_affine(feats, level, style, alpha, cfg)
                 conv = dec_p[layers[0][1]]
                 wf, bf = dec_lib.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
                 x = junction_ops.decoder_tail_nchw(
@@ -368,6 +444,16 @@ def stylize(
 ) -> torch.Tensor:
     """Entry point: ``stylize_fn`` without autograd."""
     return stylize_fn(params, content, style_cache, alpha, cfg)
+
+
+@torch.no_grad()
+def stylize_interp(
+    params: dict, content, caches: list[StyleCache], weights, alpha, cfg: CascadeConfig
+) -> torch.Tensor:
+    """Multi-style interpolation, then the cascade: ``stylize`` on the
+    blend of ``caches`` by ``weights [K]``."""
+    cache = interpolate_style_caches(caches, weights, cfg)
+    return stylize_fn(params, content, cache, alpha, cfg)
 
 
 def stylize_pair(

@@ -53,15 +53,25 @@ def _cudnn(enabled: bool):
         torch.backends.cudnn.enabled = prev
 
 
-def _cudnn_ok(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> bool:
+def _cudnn_ok(conv) -> bool:
     """Time cuDNN and PyTorch's own conv once; keep cuDNN unless it is
     more than 2× slower. The margin keeps the choice stable from run
     to run: where both are sane they are within 2× of each other."""
     times = []
     for enabled in (True, False):
         with _cudnn(enabled):
-            times.append(cuda_ms(lambda: F.conv2d(x, w, b), iters=1, warmup=1))
+            times.append(cuda_ms(conv, iters=1, warmup=1))
     return times[0] <= 2.0 * times[1]
+
+
+def conv_by_shape(key: tuple, conv):
+    """``conv()``, a conv on the card, under cuDNN or under PyTorch's own
+    conv, whichever ``_cudnn_ok`` chose for ``key`` (its shapes, dtype and
+    device) the first time it met it."""
+    if key not in _CUDNN_OK:
+        _CUDNN_OK[key] = _cudnn_ok(conv)
+    with _cudnn(_CUDNN_OK[key]):
+        return conv()
 
 
 def conv2d_reflect_nchw(
@@ -86,10 +96,7 @@ def conv2d_reflect_nchw(
             return F.conv2d(x.float(), w.float()).to(x.dtype) + b[:, None, None]
         return F.conv2d(x, w, b)
     key = (tuple(x.shape), tuple(w.shape), x.dtype, x.device)
-    if key not in _CUDNN_OK:
-        _CUDNN_OK[key] = _cudnn_ok(x, w, b)
-    with _cudnn(_CUDNN_OK[key]):
-        return F.conv2d(x, w, b)
+    return conv_by_shape(key, lambda: F.conv2d(x, w, b))
 
 
 def maxpool2_nchw(x: torch.Tensor) -> torch.Tensor:

@@ -98,6 +98,31 @@ def centered_gram_cn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return _centered_gram_plain(x)
 
 
+def moments_cn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(mean [B, C], population variance [B, C])`` of channel-major ``x [B, C, N]``, f32.
+
+    AdaIN's statistics (``wct_tpu/ops/reductions.py::moments0``). On the
+    card they are the mean and the diagonal of ``centered_gram_cuda``
+    over N: the kernel's sums are compensated, in a fixed order that
+    depends on N alone, and it takes bf16 as it lies, so an image's
+    moments are the same bits alone and in any batch and a long sum of
+    a mostly-zero ReLU map does not drift with its count (PERF.md §6),
+    which a reduction of PyTorch's, blocked by the batch shape,
+    does not promise. The off-diagonal entries cost little beside it:
+    ``chip_smoke.py`` times the route against the plain two-pass at
+    relu1_1. A CPU tensor takes the plain two-pass
+    ``reductions.moments0``.
+    """
+    if x.dim() != 3:
+        raise ValueError(f"moments_cn needs x [B, C, N], got {tuple(x.shape)}")
+    if x.device.type == "cuda":
+        gram, mean = centered_gram_cuda(x.contiguous())
+        return mean, gram.diagonal(dim1=-2, dim2=-1) / x.shape[-1]
+    if x.device.type != "cpu":
+        raise ValueError(f"no centered_gram kernel for device {x.device}")
+    return reductions.moments0(x.mT)
+
+
 def centered_gram(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """``(un-normalised centred Gram [C, C], mean [C])`` of ``x [N, C]``.
 

@@ -53,6 +53,19 @@ def mean0(x: torch.Tensor) -> torch.Tensor:
     return sum0(x) / x.shape[-2]
 
 
+def moments0(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """(mean, population variance) over the N axis of ``[..., N, C]``, f32.
+
+    Two-pass ``E[(x−μ)²]`` (not ``E[x²]−μ²``), so a large mean does not
+    cancel: ``wct_tpu/ops/reductions.py::moments0``, ddof = 0 as
+    ``tf.nn.moments``. The plain form: ``gram.moments_cn`` takes it for
+    CPU tensors and reads the card's moments off the centred Gram.
+    """
+    mu = mean0(x)
+    centered = x.float() - mu.unsqueeze(-2)
+    return mu, mean0(centered * centered)
+
+
 def vecmat(v: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
     """``[..., K] @ [..., K, N] → [..., N]``."""
     return (v.float().unsqueeze(-2) @ m.float()).squeeze(-2)

@@ -52,6 +52,11 @@ def resize_to(img: np.ndarray, size: int) -> np.ndarray:
     return _resize(img, new_h, new_w)
 
 
+def resize_exact(img: np.ndarray, h: int, w: int) -> np.ndarray:
+    """Resize to exactly ``[h, w]``."""
+    return _resize(img, h, w)
+
+
 def _resize(img: np.ndarray, h: int, w: int) -> np.ndarray:
     pil = Image.fromarray((np.clip(img, 0, 1) * 255.0 + 0.5).astype(np.uint8))
     out = pil.resize((w, h), Image.BILINEAR)
@@ -66,3 +71,22 @@ def center_crop(img: np.ndarray, size: int) -> np.ndarray:
         h, w = img.shape[:2]
     top, left = (h - size) // 2, (w - size) // 2
     return img[top : top + size, left : left + size]
+
+
+def random_crop(img: np.ndarray, size: int, rng: np.random.Generator) -> np.ndarray:
+    """Random size×size crop, resizing up first if needed."""
+    h, w = img.shape[:2]
+    if min(h, w) < size:
+        img = resize_to(img, size)
+        h, w = img.shape[:2]
+    top = int(rng.integers(0, h - size + 1))
+    left = int(rng.integers(0, w - size + 1))
+    return img[top : top + size, left : left + size]
+
+
+def get_img_random_crop(
+    path: str | os.PathLike, size: int = 256, rng: np.random.Generator | None = None
+) -> np.ndarray:
+    """Load, resize up if needed, and crop a random size×size square."""
+    rng = rng or np.random.default_rng()
+    return random_crop(get_img(path), size, rng)
