@@ -21,7 +21,14 @@ other transforms: AdaIN unfused in f32 (``main_adain``) and fused in bf16
 (``main_adain_fused``), style-swap at relu5_1 (``main_swap5``), grouped
 WCT with four groups (``main_groups``) and the relative truncation
 (``main_trunc``, one batch). It checks the outputs of each and one
-against another, and runs the CLI five times.
+against another, and runs the CLI five times. Then the serving path at
+1280×720, the stream CLI's default frame: the kernels at the stream's
+shapes (``stream_kernels``), ``StreamStylizer`` strict and pipelined on
+the bf16 fused, the f32 Newton–Schulz-kernel and the ``eigh`` routes
+(``stream``), where a frame alone and in a batch of four part
+(``stream_batch_gap``), ``BucketedStylizer`` on four buckets (``bucketed``) and
+the stream CLI converting an mp4 (``stream_cli``, where cv2 is
+installed).
 
 Each phase prints one JSON line. The line before the last lists each
 kernel with its launches in the main path's run and its times; the
@@ -32,15 +39,20 @@ does without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import dataclasses
+import difflib
 import json
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils._pytree import tree_leaves
 
 from wct_tpu_torch.models import cascade, decoder, vgg
 from wct_tpu_torch.ops import _build, conv_small, convs, gram, junction, reductions, sqrtm
@@ -58,6 +70,9 @@ from wct_tpu_torch.train import checkpoint
 from wct_tpu_torch.utils import images
 from wct_tpu_torch.tools.profile_sqrtm import sqrt_float64
 from wct_tpu_torch.utils.device import card_name, cuda_ms
+from wct_tpu_torch.utils.profiling import StageTimer, device_busy_share, trace
+from wct_tpu_torch.utils.serving import BucketedStylizer, bucket_shape, pad_to_bucket
+from wct_tpu_torch.utils.stream import StreamStylizer
 
 ROOT = Path(__file__).resolve().parent
 SIZE = 512
@@ -230,10 +245,10 @@ def ns_float64(a, iters: int):
 NS_F64_LIMIT, NS_F64_VS_PLAIN = 5e-5, 2.0
 
 
-def phase_kernel(params, content, style, cfg, name):
+def phase_kernel(params, content, style, cfg, name, spd=True, phase="kernel"):
     """ns_sqrtm against its plain version and a float64 square root at the
     main path's shapes: each level's content covariances at B = 4 and the
-    style's at B = 1, and random SPD matrices at B = 16."""
+    style's at B = 1, and (``spd``) random SPD matrices at B = 16."""
 
     flops, bw = peaks(name)
     tf32 = tf32_peak(name)
@@ -245,7 +260,7 @@ def phase_kernel(params, content, style, cfg, name):
     cases += [(f"{lvl}_style_b1", a)
               for lvl, a in level_covariances(params, style[None], cfg).items()]
     gen = torch.Generator().manual_seed(SEED)
-    for c in (64, 128, 256, 512):  # random SPD at B=16, condition number 100
+    for c in (64, 128, 256, 512) if spd else ():  # random SPD at B=16, condition number 100
         q, _ = torch.linalg.qr(torch.randn(16, c, c, generator=gen, dtype=torch.float64))
         eig = torch.logspace(0, -2, c, dtype=torch.float64)
         cases.append((f"spd_b16_c{c}", ((q * eig) @ q.mT).float().to(DEV).contiguous()))
@@ -265,7 +280,7 @@ def phase_kernel(params, content, style, cfg, name):
         n = 20 if c <= 256 else 10
         ms_k, ms_p = cuda_ms(lambda: kernel(a), n), cuda_ms(lambda: plain(a), n)
         bound, bound_by = ns_bound_ms(b, c, iters, tf32, bw)
-        row = {"phase": "kernel", "kernel": "ns_sqrtm", "case": label, "B": b, "C": c,
+        row = {"phase": phase, "kernel": "ns_sqrtm", "case": label, "B": b, "C": c,
                "rel_err_sqrt": err_sq, "rel_err_isqrt": err_isq, "max_abs_err": max_abs,
                "rel_err_vs_float64": rel_fro(sq_k.double(), ref64),
                "plain_rel_err_vs_float64": rel_fro(sq_p.double(), ref64),
@@ -474,13 +489,19 @@ def unfused_bf16_chain(hw, tw=None):
         torch.relu(conv2d_reflect_nchw(upsample_nearest2_nchw(d), wd1, bd1)), wd2, bd2))
 
 
-def phase_junction_kernels(params, content, cache, cfg, name):
-    """encoder_head, junction and decoder_tail, each form against its plain
-    version, at the main path's shapes and at awkward ones. The 64→64 convs
-    run on the tensor cores, f32 in 3×TF32, bf16 in one pass: the bound is
-    the passes over all the FLOP at the type's rate (or the bytes), with the
-    fp32 FFMA floor beside it. The bf16 cases take the f32 main path's
-    tensors rounded to bf16."""
+def phase_junction_kernels(params, content, cache, cfg, name, dtypes=(torch.float32, torch.bfloat16),
+                           main_case="main_b4_512", edge_cases=True, phase="kernel", main=True):
+    """encoder_head, junction and decoder_tail, each form in ``dtypes``
+    against its plain version, at the main path's shapes (``content``'s
+    first microbatch; ``main=False`` marks them as another route's and
+    returns no line) and, with ``edge_cases``, at awkward ones. Every case
+    also holds the kernel on the batch's first image alone to the batch's
+    first image, bitwise: an image's result must not depend on its batch.
+    The 64→64
+    convs run on the tensor cores, f32 in 3×TF32, bf16 in one pass: the
+    bound is the passes over all the FLOP at the type's rate (or the bytes),
+    with the fp32 FFMA floor beside it. The bf16 cases take the f32 main
+    path's tensors rounded to bf16."""
     flops, bw = peaks(name)
     rates = {torch.float32: (3, tf32_peak(name)), torch.bfloat16: (1, bf16_peak(name))}
     hw = head_weights(params)
@@ -489,9 +510,10 @@ def phase_junction_kernels(params, content, cache, cfg, name):
     rand = lambda *shape: torch.rand(*shape, generator=gen).to(DEV)  # noqa: E731
     rows = []
 
-    def run(kernel_name, case, kernel, plain, ops, nbytes, shape, main, library=None,
+    def run(kernel_name, case, kernel, plain, ops, nbytes, shape, main, alone, library=None,
             plain64=None, chain=True, unfused=None):
         got, ref = kernel(), plain()
+        first = alone()
         torch.cuda.synchronize()
         bf16 = got.dtype == torch.bfloat16
         label = f"{kernel_name}_bf16" if bf16 else kernel_name
@@ -499,10 +521,12 @@ def phase_junction_kernels(params, content, cache, cfg, name):
               f"{label} {case}: degenerate output")
         err = rel_max(got.float(), ref.float())
         again = kernel()
-        row = {"phase": "kernel", "kernel": label, "case": case, "shape": list(shape),
+        row = {"phase": phase, "kernel": label, "case": case, "shape": list(shape),
                "main_path": main, "rel_max_err": err,
                "max_abs_err": float((got.float() - ref.float()).abs().max()),
-               "bitwise_repeatable": bool(torch.equal(got, again))}
+               "bitwise_repeatable": bool(torch.equal(got, again)),
+               "alone_equals_batch_bitwise": bool(torch.equal(first, got[:1]))}
+        del first
         if bf16:
             row["vs_plain"] = bf16_agreement(got, ref)
         if plain64 is not None:  # both against a float64 evaluation of the same chain
@@ -536,6 +560,8 @@ def phase_junction_kernels(params, content, cache, cfg, name):
             check(v["bitwise"] >= BF16_BITWISE and v["within_ulp"] == 1.0,
                   f"{label} vs plain at {case}: {v}")
         check(row["bitwise_repeatable"], f"{label} at {case}: two calls differ")
+        check(row["alone_equals_batch_bitwise"],
+              f"{label} at {case}: the first image alone differs from it in the batch")
         rows.append(row)
 
     def head_case(case, x, main=False):
@@ -544,6 +570,7 @@ def phase_junction_kernels(params, content, cache, cfg, name):
         run("encoder_head", case, lambda: junction.encoder_head_cuda(x, *hw),
             lambda: junction._encoder_head_plain(x, *hw),
             b * 2 * h * w * 9 * (3 * 64 + 64 * 64), b * h * w * (3 + 16), x.shape, main,
+            lambda: junction.encoder_head_cuda(x[:1].contiguous(), *hw),
             plain64=(lambda: junction._encoder_head_plain(x, *hw, acc=torch.float64))
             if x.dtype == torch.bfloat16 else None, unfused=unfused)
 
@@ -561,6 +588,7 @@ def phase_junction_kernels(params, content, cache, cfg, name):
         unfused = (lambda: unfused_bf16_chain(hw, tw)(d)) if main and d.dtype == torch.bfloat16 else None
         run("junction", case, lambda: junction.junction_cuda(*args),
             lambda: junction._junction_plain(*args), ops, nbytes, d.shape, main,
+            lambda: junction.junction_cuda(d[:1].contiguous(), *args[1:]),
             plain64=plain64, unfused=unfused)
 
     def tail_case(case, x, w, b, clip, main=False):
@@ -573,34 +601,38 @@ def phase_junction_kernels(params, content, cache, cfg, name):
             library = lambda: F.conv2d(xp, wg, bg, groups=bsz)  # noqa: E731
         run("decoder_tail", case, lambda: junction.decoder_tail_cuda(x, w, b, clip),
             lambda: junction._decoder_tail_plain(x, w, b, clip),
-            bsz * 2 * h * wd * 9 * 64 * 3, bsz * h * wd * (64 + 3), x.shape, main, library,
-            chain=False)
+            bsz * 2 * h * wd * 9 * 64 * 3, bsz * h * wd * (64 + 3), x.shape, main,
+            lambda: junction.decoder_tail_cuda(x[:1].contiguous(), w[:1].contiguous(),
+                                               b[:1].contiguous(), clip),
+            library, chain=False)
 
     bf16 = torch.bfloat16
-    for dtype in (torch.float32, bf16):
-        head_case("main_b4_512", img.to(dtype), main=True)
+    for dtype in dtypes:
+        head_case(main_case, img.to(dtype), main=main)
         for level, (d, tw) in ds.items():
-            junction_case(level, d.to(dtype), tw, True, False, main=True)
-        tail_case("main_b4_512", f.to(dtype), wf, bf, False, main=True)
-    d3, tw = ds["relu3_1"]
-    for dtype in (torch.float32, bf16):
-        # The same main-path map through the clip, which the cascade's last
-        # junction of a clipped run takes, and the shallow variant at the main
-        # path's size, though the cascade never calls it.
-        junction_case("relu3_1_clip", d3.to(dtype), tw, True, True)
-        junction_case("relu3_1_shallow", d3.to(dtype), tw, False, False)
-    for b, h, w in ((1, 16, 16), (2, 48, 32), (3, 64, 16), (1, 512, 512)):
-        label = f"b{b}_{h}x{w}"
-        x, dmap, fmap = rand(b, 3, h, w), rand(b, 64, h // 2, w // 2) * 20, rand(b, 64, h, w)
-        wt, bt = (rand(b, 3, 64, 3, 3) - 0.5) * 0.2, rand(b, 3)
+            case = level if main_case == "main_b4_512" else f"{level}_{main_case}"
+            junction_case(case, d.to(dtype), tw, True, False, main=main)
+        tail_case(main_case, f.to(dtype), wf, bf, False, main=main)
+    if edge_cases:
+        d3, tw = ds["relu3_1"]
         for dtype in (torch.float32, bf16):
-            head_case(label, x.to(dtype))
-            for deep in (True, False):
-                for clip in (False, True):  # ×20: the rgb stage leaves [0, 1], so the clip acts
-                    junction_case(f"{label}_{'deep' if deep else 'shallow'}{'_clip' if clip else ''}",
-                                  dmap.to(dtype), tw, deep, clip)
-            for clip in (False, True):
-                tail_case(f"{label}{'_clip' if clip else ''}", fmap.to(dtype), wt, bt, clip)
+            # The same main-path map through the clip, which the cascade's last
+            # junction of a clipped run takes, and the shallow variant at the main
+            # path's size, though the cascade never calls it.
+            junction_case("relu3_1_clip", d3.to(dtype), tw, True, True)
+            junction_case("relu3_1_shallow", d3.to(dtype), tw, False, False)
+        for b, h, w in ((1, 16, 16), (2, 48, 32), (3, 64, 16), (1, 512, 512)):
+            label = f"b{b}_{h}x{w}"
+            x, dmap, fmap = rand(b, 3, h, w), rand(b, 64, h // 2, w // 2) * 20, rand(b, 64, h, w)
+            wt, bt = (rand(b, 3, 64, 3, 3) - 0.5) * 0.2, rand(b, 3)
+            for dtype in (torch.float32, bf16):
+                head_case(label, x.to(dtype))
+                for deep in (True, False):
+                    for clip in (False, True):  # ×20: the rgb stage leaves [0, 1], so the clip acts
+                        junction_case(f"{label}_{'deep' if deep else 'shallow'}{'_clip' if clip else ''}",
+                                      dmap.to(dtype), tw, deep, clip)
+                for clip in (False, True):
+                    tail_case(f"{label}{'_clip' if clip else ''}", fmap.to(dtype), wt, bt, clip)
 
     def line(kernel_name):
         mine = [r for r in rows if r["kernel"] == kernel_name]
@@ -616,7 +648,8 @@ def phase_junction_kernels(params, content, cache, cfg, name):
             "library_ms": None if None in lib else sum(lib),
         }
 
-    return {k: line(k) for n in BY_DTYPE for k in (n, f"{n}_bf16")}
+    return {k: line(k) for n in BY_DTYPE for k in (n, f"{n}_bf16")
+            if any(r["kernel"] == k and r["main_path"] for r in rows)}
 
 
 def fused_stages(params, batch, cache, cfg) -> dict:
@@ -841,10 +874,11 @@ def phase_conv_small_kernels(params, t, name):
     return {"conv3x3_small": line("ms_nhwc"), "conv3x3_small_nchw": line("ms_nchw")}
 
 
-def phase_gram_kernel(t, name):
+def phase_gram_kernel(t, name, edge_cases=True, extra=(), phase="kernel"):
     """centered_gram against its plain version: the five levels' bf16
-    features of the throughput cascade at B = 4 and B = 1, their f32
-    upcast at relu1_1, and N = 7, 132 and 1000."""
+    features of the throughput cascade at B = 4 and, with ``edge_cases``,
+    at B = 1, their f32 upcast at relu1_1, and N = 7, 132 and 1000; then
+    the ``extra`` (case, x) pairs."""
     flops, bw = peaks(name)
     tf32 = tf32_peak(name)
     gen = torch.Generator().manual_seed(SEED + 4)
@@ -859,7 +893,7 @@ def phase_gram_kernel(t, name):
         mean_err = float((mean - ref_mean).abs().max() / ref_mean.abs().max())
         again, _ = gram.centered_gram_cn(x)
         alone, _ = gram.centered_gram_cn(x[-1:].contiguous())
-        row = {"phase": "kernel", "kernel": "centered_gram", "case": case, "shape": [bsz, c, n],
+        row = {"phase": phase, "kernel": "centered_gram", "case": case, "shape": [bsz, c, n],
                "dtype": str(x.dtype).split(".")[-1], "main_path": main, "rel_fro_err": err,
                "mean_rel_err": mean_err, "max_abs_err": float((got - ref).abs().max()),
                "bitwise_repeatable": bool(torch.equal(got, again)),
@@ -896,11 +930,14 @@ def phase_gram_kernel(t, name):
 
     for level, feats in t["feats"].items():
         run(f"{level}_b4", feats.flatten(2).contiguous(), True)
-    for level, feats in t["feats"].items():
-        run(f"{level}_b1", feats[:1].flatten(2).contiguous(), False)
-    run("relu1_1_b4_f32", t["feats"]["relu1_1"].flatten(2).float().contiguous(), False)
-    for n, c in ((7, 256), (132, 512), (1000, 32)):
-        run(f"random_n{n}_c{c}_b6", torch.rand(6, c, n, generator=gen).to(DEV), False)
+    if edge_cases:
+        for level, feats in t["feats"].items():
+            run(f"{level}_b1", feats[:1].flatten(2).contiguous(), False)
+        run("relu1_1_b4_f32", t["feats"]["relu1_1"].flatten(2).float().contiguous(), False)
+        for n, c in ((7, 256), (132, 512), (1000, 32)):
+            run(f"random_n{n}_c{c}_b6", torch.rand(6, c, n, generator=gen).to(DEV), False)
+    for case, x in extra:
+        run(case, x, False)
     main_rows = [r for r in rows if r["main_path"]]
     return {"centered_gram": {
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),
@@ -1566,6 +1603,447 @@ def phase_cli():
               "outputs": [str(Path(p).relative_to(ROOT)) for p in outs]})
 
 
+# The stream's frame: the stream CLI's default size and BASELINE.json's
+# fifth configuration (streaming 720p frames with a cached style).
+STREAM_H, STREAM_W, STREAM_BATCH = 720, 1280, 4
+N_STREAM = 24
+# Launches per dispatch of the stream's routes.
+PER_DISPATCH = {
+    "bf16_fused": {"encoder_head_bf16": 1, "junction_bf16": 3, "decoder_tail_bf16": 1,
+                   "centered_gram": 5},
+    "f32_ns_pallas": {"ns_sqrtm": 5, "centered_gram": 5},
+    "f32_eigh": {"centered_gram": 5},
+}
+
+
+def stream_frames(n: int, seed: int) -> list[np.ndarray]:
+    """``n`` seeded noise frames at the stream's size; every sixth is
+    540×960, which the engine resizes."""
+    rng = np.random.default_rng(seed)
+    return [rng.random((540, 960, 3) if i % 6 == 5 else (STREAM_H, STREAM_W, 3), dtype=np.float32)
+            for i in range(n)]
+
+
+def phase_stream_kernels(params, style, name):
+    """Each kernel of the stream's routes at the stream's shapes, against its
+    plain version with the gates of phase ``kernel``: the bf16 head,
+    junctions and tail on one 720p batch of 4 and on its first frame alone,
+    the dispatch of a ``frame_batch=1`` engine (the f32 route's maps rounded
+    to bf16); the Gram on the five levels of that batch's bf16 features and
+    of its f32 features (the f32 routes' ``encode_multi_nchw``), each at
+    B = 4 and B = 1, and on a 1024² bucket's relu1_1 features (N = 921,600
+    and 1,048,576, each against float64); and ns_sqrtm on the batch's and
+    the style's covariances."""
+    frames = np.stack(stream_frames(STREAM_BATCH, SEED + 10))
+    cfg = cascade.CascadeConfig(method="newton_schulz_pallas")
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    lines = phase_junction_kernels(params, frames, cache, cfg, name, dtypes=(torch.bfloat16,),
+                                   main_case="stream_b4_720p", edge_cases=False,
+                                   phase="stream_kernels")
+    phase_junction_kernels(params, frames[:1], cache, cfg, name, dtypes=(torch.bfloat16,),
+                           main_case="stream_b1_720p", edge_cases=False, phase="stream_kernels",
+                           main=False)
+    lines["ns_sqrtm"] = phase_kernel(params, frames, style, cfg, name, spd=False,
+                                     phase="stream_kernels")
+    del cache
+    extra = []
+    with torch.no_grad():
+        x = to_nchw(torch.as_tensor(frames, device=DEV))
+        for dtype in (torch.bfloat16, torch.float32):
+            level_feats = vgg.encode_multi_nchw(params["encoder"], x.to(dtype), cfg.relu_targets)
+            if dtype == torch.bfloat16:
+                feats = level_feats
+            tag = str(dtype).split(".")[-1]
+            for level, f in level_feats.items():
+                if dtype == torch.float32:
+                    extra.append((f"{level}_b4_{tag}", f.flatten(2).contiguous()))
+                extra.append((f"{level}_b1_{tag}", f[:1].flatten(2).contiguous()))
+            del level_feats
+        big = np.random.default_rng(SEED + 11).random((1, 1024, 1024, 3), dtype=np.float32)
+        big = to_nchw(torch.as_tensor(big, device=DEV)).to(torch.bfloat16)
+        f1024 = vgg.encode_multi_nchw(params["encoder"], big, ("relu1_1",))["relu1_1"]
+    extra.append(("relu1_1_bucket_1024x1024_b1", f1024.flatten(2).contiguous()))
+    lines.update(phase_gram_kernel({"feats": feats}, name, edge_cases=False,
+                                   phase="stream_kernels", extra=extra))
+    emit({"phase": "stream_kernels", "shape": [STREAM_BATCH, STREAM_H, STREAM_W, 3],
+          "microbatch_lines": lines})
+
+
+def stream_run(eng, frames, mode: str):
+    """``frames`` through ``eng``, strict (``process`` each) or pipelined
+    (``process_pipelined``, then the drain): (outputs, wall seconds); every
+    output has been read back when it returns."""
+    t0 = time.perf_counter()
+    if mode == "strict":
+        outs = [eng.process(f) for f in frames]
+    else:
+        outs = [o for o in (eng.process_pipelined(f) for f in frames) if o is not None]
+        while (tail := eng.collect()) is not None:
+            outs.append(tail)
+    return outs, time.perf_counter() - t0
+
+
+def same_bits(a, b) -> bool:
+    return len(a) == len(b) and all(np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def in_unit_range(outs) -> bool:
+    return all(np.isfinite(o).all() and o.min() >= 0.0 and o.max() <= 1.0 for o in outs)
+
+
+def stream_engine(params, cfg, style, frame_batch, readback="uint8"):
+    """A started engine at the stream's size, its style set, warmed up by one
+    pipelined group (the first dispatch of a shape times cuDNN per conv)."""
+    eng = StreamStylizer(params, cfg, STREAM_H, STREAM_W, readback=readback,
+                         frame_batch=frame_batch)
+    eng.alpha = ALPHA
+    eng.set_style(style)
+    stream_run(eng, stream_frames(frame_batch, SEED + 12), "pipelined")
+    return eng
+
+
+def stream_route(params, cfg, style, frames, route, frame_batch=1, readback="uint8",
+                 traced=False):
+    """One engine on ``frames``: strict, then pipelined with the launch counts
+    set to 0 just before and read just after, then a strict run of four
+    frames under a StageTimer, the host time one cascade call takes to
+    return against its whole time, and (``traced``) the card's busy share
+    in a profiler trace of eight pipelined frames. Checks pipelined =
+    strict bitwise, in order, nothing left pending, the launches per
+    dispatch, outputs in [0, 1]. Returns (engine, strict outputs, pipelined
+    outputs, row)."""
+    eng = stream_engine(params, cfg, style, frame_batch, readback)
+    strict, t_strict = stream_run(eng, frames, "strict")
+    reset_counts()
+    torch.cuda.synchronize()
+    piped, t_piped = stream_run(eng, frames, "pipelined")
+    counts = read_counts()
+    dispatches = -(-len(frames) // frame_batch)
+    expected = {**NO_LAUNCHES, **{k: v * dispatches for k, v in PER_DISPATCH[route].items()}}
+    check(counts == expected, f"stream {route} fb{frame_batch}: launched {counts}, expected {expected}")
+    check(same_bits(strict, piped), f"stream {route} fb{frame_batch}: pipelined differs from strict")
+    check(eng.n_pending == 0, f"stream {route}: {eng.n_pending} frames left after the drain")
+    check(in_unit_range(strict) and in_unit_range(piped), f"stream {route}: output not in [0, 1]")
+    check(all(o.shape == (STREAM_H, STREAM_W, 3) for o in piped), f"stream {route}: output shape")
+    eng.timer = StageTimer()
+    stream_run(eng, frames[:4], "strict")
+    split = {k: v * 1e3 / 4 for k, v in eng.timer.totals.items()}  # ms per strict frame
+    eng.timer = None
+    # Does the cascade call return before its work is done (is it enqueued
+    # ahead of the card)? Host time to return against the whole call.
+    x = torch.as_tensor(np.stack(frames[:frame_batch]), device=DEV)
+    calls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cascade.stylize(params, x, eng._cache, ALPHA, cfg)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        calls.append((t1 - t0, time.perf_counter() - t0))
+    enqueue_s, call_s = min(calls)
+    del x
+    strict_ms, piped_ms = t_strict * 1e3 / len(frames), t_piped * 1e3 / len(frames)
+    around = sum(v for k, v in split.items() if k != "device")
+    row = {"route": route, "frame_batch": frame_batch, "readback": readback, "n_frames": len(frames),
+           "dispatches": dispatches, "launches": counts, "pipelined_equals_strict_bitwise": True,
+           "strict_ms_per_frame": strict_ms, "pipelined_ms_per_frame": piped_ms,
+           "pipelined_fps": len(frames) / t_piped, "strict_split_ms_per_frame": split,
+           "hidden_ms_per_frame": strict_ms - piped_ms, "around_device_ms_per_frame": around,
+           "cascade_enqueue_ms": enqueue_s * 1e3, "cascade_call_ms": call_s * 1e3}
+    if traced:
+        log_dir = ROOT / "build" / "chip_smoke" / f"trace_{route}_fb{frame_batch}"
+        path = log_dir / "trace.json"
+        path.unlink(missing_ok=True)
+        with trace(str(log_dir)) as prof:
+            check(prof is not None, f"stream {route}: the profiler did not start")
+            stream_run(eng, frames[:8], "pipelined")
+        row["traced_pipelined_device_busy_share"] = device_busy_share(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        per = -(-len(frames[:8]) // frame_batch)  # dispatches in the traced window
+        row["traced_per_dispatch"] = {
+            "kernels": sum(e.get("cat") == "kernel" for e in events) / per,
+            "bmm_calls": sum(e.get("name") == "aten::bmm" for e in events) / per,
+            "stream_synchronizes": sum(e.get("name") == "cudaStreamSynchronize" for e in events) / per,
+        }
+    return eng, strict, piped, row
+
+
+def phase_stream(params, name):
+    """StreamStylizer at 1280×720 on the trained bundle, one 512-px style:
+    the bf16 fused route (frame_batch 1 and 4, uint8 and float32 readback, a
+    live alpha change inside a group), then the f32 Newton–Schulz-kernel
+    route on fewer frames and one group of frames on the eigh route."""
+    style = np.random.default_rng(SEED + 13).random((SIZE, SIZE, 3), dtype=np.float32)
+    frames = stream_frames(N_STREAM, SEED + 14)
+    rows = []
+    cfg = cascade.CascadeConfig(**BF16_FUSED)
+    e1, s1, p1, row = stream_route(params, cfg, style, frames, "bf16_fused", traced=True)
+    rows.append(row)
+    e4, s4, p4, row = stream_route(params, cfg, style, frames, "bf16_fused", frame_batch=4,
+                                   traced=True)
+    # frame_batch=4 dispatches [4, 720, 1280, 3], a frame_batch=1 engine
+    # [1, ...]; phase stream_batch_gap finds where the two part.
+    gap = torch.as_tensor(np.abs(np.stack(p4) - np.stack(p1))).flatten()  # 66M values
+    row["vs_frame_batch_1"] = {"median": float(gap.median()),
+                               "q99": float(torch.quantile(gap[::8], 0.99)),
+                               "max": float(gap.max()), "share_differing": float((gap > 0).float().mean())}
+    check(row["vs_frame_batch_1"]["median"] < COMPOSED_MEDIAN_LIMIT,
+          f"stream frame_batch 4 vs 1: {row['vs_frame_batch_1']}")
+    rows.append(row)
+    ef, _, pf, row = stream_route(params, cfg, style, frames[:8], "bf16_fused", readback="float32")
+    del ef
+    host_u8 = [(np.clip(o, 0, 1) * 255).astype(np.uint8) for o in pf]
+    card_u8 = [e1.process(f, raw=True) for f in frames[:8]]  # the card's bytes
+    check(same_bits(host_u8, card_u8), "uint8 readback differs from the host's quantisation")
+    check(same_bits([b.astype(np.float32) / 255.0 for b in card_u8], p1[:8]),
+          "uint8 readback: the float32 outputs are not the bytes / 255")
+    row["uint8_readback_equals_host_quantisation_bitwise"] = True
+    rows.append(row)
+    del e1
+
+    # A live alpha change between two submits of one group applies from the
+    # next group on.
+    e4.alpha = ALPHA
+    e4.submit(frames[0])
+    e4.alpha = 1.0
+    for f in frames[1:8]:
+        e4.submit(f)
+    got = [e4.collect() for _ in range(8)]
+    check(e4.collect() is None and e4.n_pending == 0, "alpha run left frames pending")
+    want_next = [e4.process(f) for f in frames[4:8]]
+    check(same_bits(got[:4], s4[:4]), "an alpha change applied to the group already started")
+    check(same_bits(got[4:], want_next), "an alpha change did not apply from the next group")
+    check(not same_bits(got[4:], s4[4:8]), "alpha 1.0 and alpha 0.6 outputs are the same")
+    del e4
+
+    cfg_ns = cascade.CascadeConfig(method="newton_schulz_pallas")
+    for fb in (1, 4):
+        eng, _, _, row = stream_route(params, cfg_ns, style, frames[:8], "f32_ns_pallas",
+                                      frame_batch=fb, traced=fb == 1)
+        rows.append(row)
+        del eng
+    eng, _, _, row = stream_route(params, cascade.CascadeConfig(), style, frames[:4], "f32_eigh",
+                                  traced=True)
+    rows.append(row)
+    del eng
+    emit({"phase": "stream", "size": [STREAM_H, STREAM_W], "style_size": SIZE, "alpha": ALPHA,
+          "alpha_change_applies_from_next_group": True, "runs": rows,
+          "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+
+# Allocations whose contents a kernel writes later: no result to compare.
+_UNWRITTEN = {torch.ops.aten.empty.memory_format, torch.ops.aten.empty_strided.default,
+              torch.ops.aten.empty_like.default, torch.ops.aten.new_empty.default,
+              torch.ops.aten.new_empty_strided.default}
+
+
+class op_prints(TorchDispatchMode):
+    """Records each ATen op's name and an exact print of its tensor inputs
+    (before it runs) and outputs: (shape, [Σ bits, Σ bits²]) over the first
+    image where dim 0 is the batch of ``batch``, else over the whole
+    tensor. The hand-written kernels are not ATen ops: their results show
+    as inputs of the ops that read them."""
+
+    def __init__(self, batch: int):
+        super().__init__()
+        self.batch, self.ops = batch, []
+
+    def _print(self, t):
+        if not isinstance(t, torch.Tensor) or t.device.type != "cuda":
+            return None
+        if t.dim() and t.shape[0] == self.batch:
+            t = t[:1]
+        v = t.detach().reshape(-1)
+        v = v.view({1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[v.element_size()]
+                   if v.dtype != torch.bool else torch.uint8).to(torch.int64)
+        return tuple(t.shape), torch.stack([v.sum(), (v * v).sum()])
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        ins = [self._print(a) for a in tree_leaves((args, kwargs))]
+        out = func(*args, **kwargs)
+        if func not in _UNWRITTEN:
+            self.ops.append((str(func), ins, [self._print(o) for o in tree_leaves(out)]))
+        return out
+
+
+def first_batch_divergence(params, cfg, cache, x) -> dict:
+    """Where the first image of ``x`` parts between the batch and itself
+    alone: both cascade calls recorded by ``op_prints`` (after a warm-up
+    call each, which times cuDNN for any new conv shape) and paired op by
+    op: the runs' longest common runs of op names, in order.
+    ``first_differing``: the first op with an output that differs;
+    ``inputs_equal`` says whether that op made the difference (its inputs
+    were equal), received it (from a hand-written kernel), or (None) had
+    an input that cannot be paired. ``sources`` counts by name every op
+    whose inputs were all equal and whose output was not."""
+    runs = []
+    for xb in (x, x[:1].contiguous()):
+        cascade.stylize(params, xb, cache, ALPHA, cfg)
+        torch.cuda.synchronize()
+        with op_prints(len(xb)) as rec:
+            cascade.stylize(params, xb, cache, ALPHA, cfg)
+        runs.append([(name, [(p[0], p[1].tolist()) if p else None for p in ins],
+                      [(p[0], p[1].tolist()) if p else None for p in outs])
+                     for name, ins, outs in rec.ops])
+        del rec
+    batch, alone = runs
+
+    def differs(a, b):
+        return [x[1] != y[1] for x, y in zip(a, b) if x and y and x[0] == y[0]]
+
+    def same(a, b):  # None where a tensor pair cannot be compared
+        if len(a) != len(b) or any(bool(x) != bool(y) or x and x[0] != y[0] for x, y in zip(a, b)):
+            return None
+        return not any(differs(a, b))
+
+    # Loops over the images add ops to the batch's run: pair the ops of the
+    # longest common runs of names, in order.
+    matcher = difflib.SequenceMatcher(None, [op[0] for op in batch], [op[0] for op in alone],
+                                      autojunk=False)
+    pairs = [(blk.a + k, blk.b + k) for blk in matcher.get_matching_blocks() for k in range(blk.size)]
+    first, sources = None, Counter()
+    for i, j in pairs:
+        (name, ins, outs), (_, ins1, outs1) = batch[i], alone[j]
+        if any(differs(outs, outs1)):
+            inputs_equal = same(ins, ins1)
+            if inputs_equal:
+                sources[name] += 1
+            if first is None:
+                shape = next(p[0] for p in outs if p)
+                first = {"index": i, "op": name, "output_shape": list(shape),
+                         "inputs_equal": inputs_equal}
+    return {"ops": [len(batch), len(alone)], "paired": len(pairs), "first_differing": first,
+            "sources": dict(sources)}
+
+
+def batch_gap(params, cfg, cache, x) -> dict:
+    """The same frames ``x`` ([B, H, W, 3]) stylized as one batch and each
+    alone (B = 1): the whole cascade's gap (median, q99, max, the share of
+    values that differ) and each level's, teacher-forced on the batch's
+    running image, as phase main_bf16_fused holds a level to f32."""
+
+    def gap(c, xs):
+        y = cascade.stylize(params, xs, cache, ALPHA, c)
+        y1 = torch.cat([cascade.stylize(params, xs[i:i + 1], cache, ALPHA, c) for i in range(len(xs))])
+        d = (y - y1).abs().flatten()
+        return y, {"median": float(d.median()), "q99": float(torch.quantile(d[::4], 0.99)),
+                   "max": float(d.max()), "share_differing": float((d > 0).float().mean())}
+
+    _, whole = gap(cfg, x)
+    levels = {}
+    for level in cfg.relu_targets:
+        x, levels[level] = gap(dataclasses.replace(cfg, relu_targets=(level,)), x)
+    return {"whole": whole, "levels_teacher_forced": levels}
+
+
+def phase_stream_batch_gap(params):
+    """How far a 720p frame's output moves between a dispatch of four frames
+    and a dispatch of it alone, on the bf16 fused stream route and on two
+    witnesses (the unfused bf16 route and the f32 Newton–Schulz-kernel
+    route), each held to main_bf16_fused's gates against f32 (the whole
+    cascade's median, each level's q99), with the first op at which the
+    two part and the ops that make the difference."""
+    style = np.random.default_rng(SEED + 13).random((SIZE, SIZE, 3), dtype=np.float32)
+    x = torch.as_tensor(np.stack(stream_frames(STREAM_BATCH, SEED + 14)), device=DEV)
+    routes = {"bf16_fused": cascade.CascadeConfig(**BF16_FUSED),
+              "bf16_unfused": cascade.CascadeConfig(**THROUGHPUT),
+              "f32_ns_pallas": cascade.CascadeConfig(method="newton_schulz_pallas")}
+    out = {}
+    for route, cfg in routes.items():
+        cache = cascade.precompute_style(params["encoder"], style, cfg)
+        row = batch_gap(params, cfg, cache, x)
+        row["divergence"] = first_batch_divergence(params, cfg, cache, x)
+        check(row["whole"]["median"] < COMPOSED_MEDIAN_LIMIT
+              and all(v["q99"] < LEVEL_Q99_LIMIT for v in row["levels_teacher_forced"].values()),
+              f"{route}: batch 4 vs batch 1 {row}")
+        out[route] = row
+        del cache
+    emit({"phase": "stream_batch_gap", "shape": list(x.shape), "alpha": ALPHA, "routes": out})
+
+
+def phase_bucketed(params):
+    """BucketedStylizer on the bf16 fused route at 300×256, 250×200,
+    720×1280 and 1024×1024, then a second image in a bucket already seen:
+    exact sizes, the fused kernels launched, no new conv shape timed for the
+    seen bucket, and one output equal to ``stylize`` on the padded input."""
+    cfg = cascade.CascadeConfig(**BF16_FUSED)
+    eng = BucketedStylizer(params, cfg)
+    rng = np.random.default_rng(SEED + 15)
+    eng.set_style(rng.random((SIZE, SIZE, 3), dtype=np.float32))
+    per_image = {**NO_LAUNCHES, **PER_DISPATCH["bf16_fused"]}
+    rows = []
+    for h, w in ((300, 256), (250, 200), (720, 1280), (1024, 1024), (270, 230)):
+        img = rng.random((h, w, 3), dtype=np.float32)
+        keys = set(convs._CUDNN_OK)
+        seen = any(r["bucket"] == list(bucket_shape(h, w)) for r in rows)
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.stylize(img, ALPHA)
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        new_keys = len(set(convs._CUDNN_OK) - keys)
+        check(out.shape == img.shape and np.isfinite(out).all(), f"bucketed {h}x{w}: {out.shape}")
+        check(counts == per_image, f"bucketed {h}x{w} launched {counts}, expected {per_image}")
+        check(not seen or new_keys == 0, f"bucketed {h}x{w}: a seen bucket timed {new_keys} new convs")
+        t0 = time.perf_counter()
+        eng.stylize(img, ALPHA)
+        rows.append({"size": [h, w], "bucket": list(bucket_shape(h, w)), "seen_bucket": seen,
+                     "first_call_s": wall, "new_conv_shapes": new_keys,
+                     "warm_call_ms": (time.perf_counter() - t0) * 1e3, "launches": counts})
+        if (h, w) == (720, 1280):
+            padded, _ = pad_to_bucket(img, eng.granularity)
+            ref = cascade.stylize(params, torch.as_tensor(padded, device=DEV)[None], eng._cache,
+                                  ALPHA, cfg)[0, :h, :w].cpu().numpy()
+            check(np.array_equal(out, ref), "bucketed output differs from stylize on the padded input")
+    emit({"phase": "bucketed", "config": f"CascadeConfig({BF16_FUSED})", "granularity": eng.granularity,
+          "alpha": ALPHA, "equals_stylize_on_padded_bitwise": True, "images": rows})
+
+
+def phase_stream_cli():
+    """The stream CLI's offline conversion as users run it: a seeded 1280×720
+    mp4 of 16 frames through ``python -m wct_tpu_torch.cli.stream`` with the
+    throughput preset in batches of 4; every frame must be written."""
+    import importlib.util
+
+    if importlib.util.find_spec("cv2") is None:
+        emit({"phase": "stream_cli", "skipped": "cv2 is not installed: no video IO"})
+        return
+    import cv2
+
+    work = ROOT / "build" / "chip_smoke" / "stream"
+    work.mkdir(parents=True, exist_ok=True)
+    src, out, style = work / "in.mp4", work / "out.mp4", work / "style.png"
+    rng = np.random.default_rng(SEED + 16)
+    writer = cv2.VideoWriter(str(src), cv2.VideoWriter_fourcc(*"mp4v"), 30, (STREAM_W, STREAM_H))
+    for _ in range(16):
+        writer.write((rng.random((STREAM_H, STREAM_W, 3)) * 255).astype(np.uint8))
+    writer.release()
+    images.save_img(style, rng.random((SIZE, SIZE, 3)))
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "wct_tpu_torch.cli.stream", "--weights", "weights/bundle.npz",
+           "--video", str(src), "--out", str(out), "--no-display", "--batch-size", "4",
+           "--preset", "throughput", "--style-path", str(style), "--alpha", str(ALPHA),
+           "--width", str(STREAM_W), "--height", str(STREAM_H), "--device", DEV]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    secs = time.perf_counter() - t0
+    check(proc.returncode == 0, f"stream CLI failed (rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    cap = cv2.VideoCapture(str(out))
+    shapes = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        shapes.append(frame.shape)
+    cap.release()
+    check(len(shapes) == 16 and all(s == (STREAM_H, STREAM_W, 3) for s in shapes),
+          f"stream CLI wrote {len(shapes)} frames of {set(shapes)}, expected 16 of 720x1280")
+    emit({"phase": "stream_cli", "cv2": cv2.__version__, "frames": len(shapes), "seconds": secs,
+          "cli_says": proc.stdout.strip().splitlines()[-1]})
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -1602,6 +2080,11 @@ def main() -> int:
     phase_main_groups(params, content, style, name)
     phase_main_trunc(params, content, style)
     phase_cli()
+    phase_stream_kernels(params, style, name)
+    phase_stream(params, name)
+    phase_stream_batch_gap(params)
+    phase_bucketed(params)
+    phase_stream_cli()
     small = "wct_tpu_torch/csrc/conv3x3_small.cu"
     head = ("wct_tpu_torch/csrc/encoder_head.cu", "wct_tpu/ops/junction_pallas.py:368")
     junc = ("wct_tpu_torch/csrc/junction.cu", "wct_tpu/ops/junction_pallas.py:530")

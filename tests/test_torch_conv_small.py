@@ -63,7 +63,7 @@ def test_plain_matches_conv3x3_reflect_pallas(shape, cin, cout, relu):
     xj, wj = jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16)
     assert conv_pallas._eligible(xj, wj)
     ref = conv_pallas.conv3x3_reflect_pallas(xj, wj, jnp.asarray(b), relu)
-    tw, tb = conv_small.weights_from_hwio(w, b)
+    tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
     assert conv_small._eligible(_t(x), tw)
     got = conv_small.conv3x3_reflect_small(_t(x), tw, tb, relu)
     assert got.dtype == torch.bfloat16
@@ -82,7 +82,7 @@ def test_plain_matches_exp_nchw_kernel():
     xn = np.ascontiguousarray(x.transpose(2, 3, 0, 1))
     ref = conv3x3_reflect_nchw(jnp.asarray(xn, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
                                jnp.asarray(b), True)
-    tw, tb = conv_small.weights_from_hwio(w, b)
+    tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
     _within_one_ulp(conv_small.conv3x3_reflect_small_nchw(_t(xn), tw, tb, True), ref)
 
 
@@ -92,7 +92,7 @@ def test_plain_matches_exp_nhwc_io_kernel(relu):
     x, w, b = _case(8, (2, 16, 24), 64, 64)
     ref = conv3x3_reflect_nhwc_io(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w, jnp.bfloat16),
                                   jnp.asarray(b), relu)
-    tw, tb = conv_small.weights_from_hwio(w, b)
+    tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
     _within_one_ulp(conv_small.conv3x3_reflect_small(_t(x), tw, tb, relu), ref)
 
 
@@ -130,7 +130,7 @@ def test_dispatcher_returns_stock_conv(impl, width, relu):
     or two of the reference's stock conv (both round the sum, then add
     the bf16 bias: |Δ| ≤ 2⁻⁷·(|ref| + max|b|))."""
     x, w, b = _case(9, (1, 8, width), 64, 3)
-    tw, tb = conv_small.weights_from_hwio(w, b)
+    tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
     got = conv_small.conv2d_reflect_fused(_t(x), tw, tb, relu, impl=impl)
     stock = tconvs.conv2d_reflect(_t(x), tw, tb)
     assert torch.equal(got, torch.relu(stock) if relu else stock)
@@ -145,7 +145,7 @@ def test_weights_from_hwio_is_the_checkpoint_layout():
     from wct_tpu_torch.train import checkpoint
 
     _, w, b = _case(3, (1, 8, 8), 5, 7)
-    tw, tb = conv_small.weights_from_hwio(w, b)
+    tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
     tree = checkpoint.params_from_numpy({"w": w, "b": b}, "cpu")
     assert torch.equal(tw, tree["w"]) and torch.equal(tb, tree["b"])
     assert tw.shape == (7, 5, 3, 3) and tw.dtype == torch.float32
@@ -154,7 +154,7 @@ def test_weights_from_hwio_is_the_checkpoint_layout():
 @pytest.mark.parametrize("case", ["float32", "rank3", "w_not_8", "bad_bias", "bad_cin"])
 def test_wrappers_reject_what_the_kernel_does_not_take(case):
     x, w, b = _case(4, (1, 8, 16), 64, 64)
-    tw, tb = conv_small.weights_from_hwio(w, b)
+    tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
     xt = _t(x)
     args = {
         "float32": (xt.float(), tw, tb),
@@ -169,7 +169,7 @@ def test_wrappers_reject_what_the_kernel_does_not_take(case):
 
 def test_kernel_wrapper_needs_the_card():
     x, w, b = _case(5, (1, 8, 8), 64, 3)
-    tw, tb = conv_small.weights_from_hwio(w, b)
+    tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
     before = conv_small.conv3x3_small_cuda.launches
     with pytest.raises(ValueError, match="CUDA tensor"):
         conv_small.conv3x3_small_cuda(_t(x), tw, tb, nhwc=True)
@@ -181,7 +181,7 @@ def test_taps_layout():
     channels 8g..8g+7 of tap (dy, dx); zero-padded in channels, in
     ``co`` to 8 (C_out ≤ 8) or 64, and to an even number of k-groups."""
     _, w, b = _case(6, (1, 8, 8), 3, 64)
-    tw, tb = conv_small.weights_from_hwio(w, b)
+    tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
     taps, bias = conv_small._taps(tw, tb)
     assert taps.dtype == torch.bfloat16
     assert taps.shape == (10, 64, 8) and bias.shape == (64,)  # 9 taps × 1 group, + 1
@@ -205,7 +205,7 @@ def test_reference_stock_conv_matches_port_bf16():
     b = (rng.standard_normal(128) * 0.1).astype(np.float32)
     ref = jconvs.conv2d_reflect(jnp.asarray(x, jnp.bfloat16), jnp.asarray(w), jnp.asarray(b))
     assert ref.dtype == jnp.bfloat16
-    tw, tb = conv_small.weights_from_hwio(w, b)
+    tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
     got = tconvs.conv2d_reflect(_t(x), tw, tb)
     assert got.dtype == torch.bfloat16
     ref = np.asarray(ref.astype(jnp.float32), np.float64)

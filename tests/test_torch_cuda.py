@@ -783,3 +783,109 @@ def test_adain_folded_bf16_tail_against_float64_rule(card):
     for r in (ref64, ref):
         bitwise, within, _ = _agreement(got, r)
         assert bitwise >= 0.99 and within == 1.0, (bitwise, within)
+
+
+# ---- the stream and bucketed serving engines on the card ----
+
+
+@pytest.fixture(scope="module")
+def bundle_on_card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from pathlib import Path
+
+    from wct_tpu_torch.train import checkpoint
+
+    bundle = Path(__file__).resolve().parent.parent / "weights" / "bundle.npz"
+    return checkpoint.params_from_numpy(checkpoint.load_pytree(bundle), "cuda")
+
+
+_BF16_FUSED = dict(compute_dtype="bfloat16", method="newton_schulz_fast", fuse_junction=True)
+
+
+@pytest.mark.parametrize("fb", [1, 3])
+@pytest.mark.parametrize("depth", [1, 2])
+def test_stream_pipelined_equals_strict_on_card(card, bundle_on_card, depth, fb):
+    """The copy stream's ordering and the pinned ring: submit-ahead gives
+    strict mode's bits, in order, with 7 frames (a partial last group),
+    also when every host slot is in flight before the first collect."""
+    from wct_tpu_torch.models import cascade
+    from wct_tpu_torch.utils.stream import StreamStylizer
+
+    rng = np.random.default_rng(depth * 10 + fb)
+    eng = StreamStylizer(bundle_on_card, cascade.CascadeConfig(**_BF16_FUSED), 128, 192,
+                         readback="uint8", pipeline_depth=depth, frame_batch=fb)
+    eng.alpha = 0.7
+    eng.set_style(rng.random((160, 160, 3), dtype=np.float32))
+    frames = [rng.random((128, 192, 3), dtype=np.float32) for _ in range(7)]
+    strict = [eng.process(f) for f in frames]
+    piped = [eng.process_pipelined(f) for f in frames]
+    while (tail := eng.collect()) is not None:
+        piped.append(tail)
+    piped = [p for p in piped if p is not None]
+    assert len(piped) == 7 and eng.n_pending == 0
+    for a, b in zip(strict, piped):
+        np.testing.assert_array_equal(a, b)
+    for f in frames:
+        eng.submit(f)
+    burst = [eng.collect() for _ in range(7)]
+    for a, b in zip(strict, burst):
+        np.testing.assert_array_equal(a, b)
+    assert all(np.isfinite(o).all() and o.min() >= 0 and o.max() <= 1 for o in strict)
+
+
+def test_stream_uint8_readback_is_the_host_quantisation_on_card(card, bundle_on_card):
+    from wct_tpu_torch.models import cascade
+    from wct_tpu_torch.utils.stream import StreamStylizer
+
+    rng = np.random.default_rng(5)
+    cfg = cascade.CascadeConfig(**_BF16_FUSED)
+    style = rng.random((128, 128, 3), dtype=np.float32)
+    engines = [StreamStylizer(bundle_on_card, cfg, 96, 160, readback=r) for r in ("float32", "uint8")]
+    for eng in engines:
+        eng.set_style(style)
+    for _ in range(3):
+        frame = rng.random((96, 160, 3), dtype=np.float32)
+        out_f, out_u = (eng.process(frame) for eng in engines)
+        host = (np.clip(out_f, 0, 1) * 255).astype(np.uint8)
+        np.testing.assert_array_equal(host, np.rint(out_u * 255).astype(np.uint8))
+
+
+def test_bucketed_stylizer_exact_sizes_on_card(card, bundle_on_card):
+    """Every size comes back exactly, through the fused kernels (buckets
+    are multiples of 16), and equals stylize on the padded input, cropped."""
+    from wct_tpu_torch.models import cascade
+    from wct_tpu_torch.utils.serving import BucketedStylizer, pad_to_bucket
+
+    rng = np.random.default_rng(6)
+    cfg = cascade.CascadeConfig(**_BF16_FUSED)
+    eng = BucketedStylizer(bundle_on_card, cfg, granularity=64)
+    eng.set_style(rng.random((128, 128, 3), dtype=np.float32))
+    for h, w in [(30, 40), (64, 64), (65, 127), (200, 90)]:
+        img = rng.random((h, w, 3), dtype=np.float32)
+        before = junction.encoder_head_cuda.launches_by_dtype["bf16"]
+        out = eng.stylize(img, 0.6)
+        assert out.shape == (h, w, 3) and np.isfinite(out).all()
+        assert junction.encoder_head_cuda.launches_by_dtype["bf16"] == before + 1
+        padded, _ = pad_to_bucket(img, 64)
+        ref = cascade.stylize(bundle_on_card, torch.as_tensor(padded, device=card)[None],
+                              eng._cache, 0.6, cfg)[0, :h, :w].cpu().numpy()
+        np.testing.assert_array_equal(out, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_centered_gram_at_720p_against_float64(card, dtype):
+    """The Gram at relu1_1 of a 1280×720 frame batch (N = 921,600), as the
+    stream route hands it: within 1e-6 of float64, exactly symmetric,
+    alone = batch."""
+    rng = np.random.default_rng(7)
+    x = np.maximum(rng.standard_normal((2, 64, 921600), dtype=np.float32) - 0.7388, 0)
+    x = torch.from_numpy(x).to(dtype).to(card)
+    got, mean = gram.centered_gram_cn(x)
+    x64 = x.double()
+    c64 = x64 - x64.mean(-1, keepdim=True)
+    g64 = c64 @ c64.mT
+    assert _gram_rel(got.double(), g64) <= 1e-6
+    assert torch.equal(got, got.mT)
+    alone, _ = gram.centered_gram_cn(x[1:])
+    assert torch.equal(alone[0], got[1])

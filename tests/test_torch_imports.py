@@ -33,13 +33,16 @@ def test_no_jax_or_reference_imports(path):
 def test_port_imports_without_jax_loaded():
     code = (
         "import sys\n"
+        "import wct_tpu_torch.utils, wct_tpu_torch.utils.profiling, wct_tpu_torch.utils.serving\n"
+        "assert 'PIL' not in sys.modules, 'Pillow loaded without utils.images'\n"
         "import wct_tpu_torch.models, wct_tpu_torch.cli.stylize, wct_tpu_torch.ops._build\n"
         "import wct_tpu_torch.tools.profile_convs, wct_tpu_torch.ops.junction\n"
         "import wct_tpu_torch.tools.profile_sqrtm, wct_tpu_torch.ops.conv_small\n"
         "import wct_tpu_torch.ops.gram, wct_tpu_torch.ops.adain, wct_tpu_torch.ops.style_swap\n"
         "import wct_tpu_torch.utils.colors\n"
+        "import wct_tpu_torch.utils.stream, wct_tpu_torch.cli.stream\n"
         "bad = [m for m in sys.modules\n"
-        "       if m.split('.')[0] in ('jax', 'jaxlib', 'wct_tpu', 'scripts', 'triton')]\n"
+        "       if m.split('.')[0] in ('jax', 'jaxlib', 'wct_tpu', 'scripts', 'triton', 'cv2')]\n"
         "assert not bad, bad\n"
     )
     subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
@@ -107,7 +110,9 @@ def test_new_kernel_modules_are_scanned():
     assert {"wct_tpu_torch/ops/conv_small.py", "wct_tpu_torch/ops/gram.py",
             "wct_tpu_torch/tools/profile_sqrtm.py", "chip_smoke.py",
             "wct_tpu_torch/ops/adain.py", "wct_tpu_torch/ops/style_swap.py",
-            "wct_tpu_torch/utils/colors.py"} <= names
+            "wct_tpu_torch/utils/colors.py", "wct_tpu_torch/utils/profiling.py",
+            "wct_tpu_torch/utils/serving.py", "wct_tpu_torch/utils/stream.py",
+            "wct_tpu_torch/cli/stream.py"} <= names
 
 
 @pytest.mark.parametrize(

@@ -43,7 +43,7 @@ from wct_tpu_torch.ops import junction as junction_ops
 from wct_tpu_torch.ops import style_swap as swap_ops
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import to_nchw, to_nhwc
-from wct_tpu_torch.utils.device import params_device, resolve_device, set_numerics
+from wct_tpu_torch.utils.device import params_device, resolve_device, scalar_on, set_numerics
 
 DEFAULT_TARGETS = ("relu5_1", "relu4_1", "relu3_1", "relu2_1", "relu1_1")
 
@@ -329,7 +329,7 @@ def _transform_level(
             white, style.fs_white, cfg.ss_alpha, cfg.ss_patch_size, cfg.ss_stride
         ).reshape(b, c, h * w)
         colored = style.stats.kernel.float().mT @ swapped + style.stats.mean.float()[:, None]
-        alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+        alpha = scalar_on(alpha, x.device)
         out = (alpha * colored + (1.0 - alpha) * x.float()).to(x.dtype)
     elif cfg.transform == "adain":
         out = adain_ops.adain_from_stats_cn(x, style.adain, alpha)

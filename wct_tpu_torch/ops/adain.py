@@ -21,6 +21,7 @@ import dataclasses
 import torch
 
 from wct_tpu_torch.ops import gram
+from wct_tpu_torch.utils.device import scalar_on
 
 # The reference's eps inside the variance normalisation (ops.py:~45).
 DEFAULT_EPS = 1e-5
@@ -61,7 +62,7 @@ def adain_transform_cn(
     """
     mu_c, var_c = gram.moments_cn(x)
     s = stats.std.float() * torch.rsqrt(var_c + eps)
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    alpha = scalar_on(alpha, x.device)
     scale = alpha * s + (1.0 - alpha)
     bias = alpha * (stats.mean.float() - s * mu_c)
     return scale, bias
@@ -86,7 +87,7 @@ def adain_from_stats_cn(
     mu_c, var_c = gram.moments_cn(x)
     out = (stats.std.float()[:, None] * (f32 - mu_c[..., None]) * torch.rsqrt(var_c + eps)[..., None]
            + stats.mean.float()[:, None])
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    alpha = scalar_on(alpha, x.device)
     return (alpha * out + (1.0 - alpha) * f32).to(x.dtype)
 
 

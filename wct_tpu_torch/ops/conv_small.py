@@ -42,6 +42,7 @@ import torch.nn.functional as F
 
 from wct_tpu_torch.ops import _build
 from wct_tpu_torch.ops.convs import conv2d_reflect, pad_reflect_nchw, to_nchw, to_nhwc
+from wct_tpu_torch.utils.device import resolve_device
 
 MAX_CHANNELS = 64
 # H and W must be multiples of 8: the TPU kernel's row tile
@@ -53,9 +54,11 @@ ALIGN = 8
 _NARROW_MAX, _GROUP = 8, 8
 
 
-def weights_from_hwio(w, b, device: str | torch.device = "cpu"):
+def weights_from_hwio(w, b, device: str | torch.device = "cuda"):
     """JAX-layout conv parameters → the port's: ``w [3, 3, C_in, C_out]``
-    (numpy, f32 or bf16-valued) → OIHW f32 tensor, ``b`` → f32 tensor."""
+    (numpy, f32 or bf16-valued) → OIHW f32 tensor, ``b`` → f32 tensor,
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     w = np.asarray(w, dtype=np.float32).transpose(3, 2, 0, 1)
     return (torch.tensor(np.ascontiguousarray(w), device=device),
             torch.tensor(np.asarray(b, dtype=np.float32), device=device))

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from wct_tpu_torch.ops import reductions
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import conv_by_shape
-from wct_tpu_torch.utils.device import set_fp32_numerics
+from wct_tpu_torch.utils.device import scalar_on, set_fp32_numerics
 
 
 def _patches_nchw(f: torch.Tensor, patch_size: int, stride: int) -> torch.Tensor:
@@ -115,7 +115,7 @@ def style_swap_nchw(
     # were chosen: a transposed conv of ones (small integers, exact).
     ones = torch.ones((1, 1, hc, wc), device=fc_white.device)
     counts = _deconv_nchw(ones, torch.ones((1, 1, ps, ps), device=fc_white.device), stride)
-    ss_alpha = torch.as_tensor(ss_alpha, dtype=torch.float32, device=fc_white.device)
+    ss_alpha = scalar_on(ss_alpha, fc_white.device)
     outs = []
     for x in fc_white.float().split(1):
         best = _best_patches(x, filters_n, stride)
@@ -172,6 +172,6 @@ def wct_style_swap(
     fs_white = whiten_cn(s, w_s, mu_s).reshape(1, c, *fs.shape[:2])
     swapped = style_swap_nchw(fc_white, fs_white, ss_alpha, patch_size, stride)
     colored = k_s.mT @ swapped.reshape(1, c, h * w) + mu_s[..., None]
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=fc.device)
+    alpha = scalar_on(alpha, fc.device)
     out = alpha * colored + (1.0 - alpha) * x.float()
     return out[0].mT.reshape(h, w, c).to(fc.dtype)

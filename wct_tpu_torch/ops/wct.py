@@ -38,6 +38,7 @@ from typing import Literal
 import torch
 
 from wct_tpu_torch.ops import gram, reductions, sqrtm
+from wct_tpu_torch.utils.device import scalar_on
 
 # Reference ops.py:~70: eps=1e-8 on the Gram diagonal, eigenvalues
 # truncated at 1e-5.
@@ -393,7 +394,7 @@ def _affine_cn(
             f"(kernel ranks {w_c.dim() - 1} vs {k_s.dim()}) — precompute the "
             "style with the same `groups`"
         )
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=x.device)
+    alpha = scalar_on(alpha, x.device)
     mu_s = stats.mean.float()
     transform = w_c @ k_s
     eye = torch.eye(transform.shape[-1], dtype=torch.float32, device=x.device)
@@ -505,7 +506,7 @@ def wct_batched(
     neighbours.
     """
     b = fc.shape[0]
-    alpha = torch.as_tensor(alpha, dtype=torch.float32, device=fc.device).expand(b)
+    alpha = scalar_on(alpha, fc.device).expand(b)
     return torch.stack([
         wct(fc[i], fs[i], alpha[i], method=method) for i in range(b)
     ])

@@ -66,6 +66,19 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     return dev
 
 
+def scalar_on(value, device: torch.device) -> torch.Tensor:
+    """``value`` (a number or a tensor) as an f32 tensor on ``device``.
+
+    A number is filled in on the device (``torch.full``): ``as_tensor``
+    would copy it from pageable host memory, and that copy waits for
+    every kernel already queued on the stream, so a cascade holding one
+    could never be enqueued ahead of the card. Same f32 value either way.
+    """
+    if torch.is_tensor(value):
+        return value.to(device=device, dtype=torch.float32)
+    return torch.full((), float(value), dtype=torch.float32, device=device)
+
+
 def card_name() -> str:
     """The first card's name and power limit, as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` prints them: the
