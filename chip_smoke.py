@@ -28,7 +28,13 @@ the bf16 fused, the f32 Newton–Schulz-kernel and the ``eigh`` routes
 (``stream``), where a frame alone and in a batch of four part
 (``stream_batch_gap``), ``BucketedStylizer`` on four buckets (``bucketed``) and
 the stream CLI converting an mp4 (``stream_cli``, where cv2 is
-installed).
+installed). Last, decoder training, which reaches no hand-written
+kernel: the relu5_1 decoder at batch 8 and crop 256 on a pool sampled on
+the card (``train``: first-step gradients against float64, bf16 against
+f32, remat and save-resume bitwise, ms per step, each conv shape's
+forward and backward times and choice), the layerwise statistics and
+solves (``train_layerwise``) and the training CLI with a resume, a
+SIGTERM and the stylize CLI on its decoder (``train_cli``).
 
 Each phase prints one JSON line. The line before the last lists each
 kernel with its launches in the main path's run and its times; the
@@ -42,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import difflib
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -66,7 +73,8 @@ from wct_tpu_torch.ops.convs import (
     to_nhwc,
     upsample_nearest2_nchw,
 )
-from wct_tpu_torch.train import checkpoint
+from wct_tpu_torch.train import checkpoint, layerwise, trainer
+from wct_tpu_torch.train import data as tdata
 from wct_tpu_torch.utils import images
 from wct_tpu_torch.tools.profile_sqrtm import sqrt_float64
 from wct_tpu_torch.utils.device import card_name, cuda_ms
@@ -2044,6 +2052,392 @@ def phase_stream_cli():
           "cli_says": proc.stdout.strip().splitlines()[-1]})
 
 
+# Decoder training at relu5_1, the deepest decoder (its feature term
+# re-encodes through ten convs), with TrainConfig's defaults: batch 8,
+# crop 256, f32, pixel and feature weights 1, lr 1e-4.
+TRAIN_TARGET = "relu5_1"
+TRAIN_STEPS = 30
+TRAIN_POOL = 64
+# First-step gradients, f32 against float64 of the same loss on the same
+# batch, each leaf's relative Frobenius error. From He init the gradient
+# is large and the bound is tight. At the bundle's trained decoder the
+# gradient is a sum whose terms cancel by up to 10⁴, and a ReLU whose
+# input sits within f32 rounding of 0 passes a term in one precision
+# and blocks it in the other: a few such flips at a deep 32² layer move
+# every leaf by about 1e-2 (an H100: 1.4e-2 under an earlier conv choice,
+# 1.1e-3 under the present one; ``tools/train_precision`` splits it by
+# route).
+TRAIN_F64_HE_LIMIT = 5e-3
+TRAIN_F64_LIMIT = 5e-2
+# A bf16 first step: all gradients together (relative Frobenius) and the
+# loss (relative), against f32 at the trained decoder and against float64
+# from He init; 30 bf16 convs each round their sum once (an H100: 0.185
+# and 2.9e-2 trained, 0.021 and 1.4e-2 from He init).
+TRAIN_BF16_GRAD_LIMIT = 0.5
+TRAIN_BF16_HE_GRAD_LIMIT = 0.1
+TRAIN_BF16_LOSS_LIMIT = 5e-2
+TRAIN_CONV_SLOWDOWN_LIMIT = 10.0
+# Layerwise statistics over a pool of 16 images at the trainer's crop, in
+# batches of 4; one batch's G in f32 against the same patches
+# accumulated in float64 (TF32 would show as ≥ 1e-4).
+LAYERWISE_G_LIMIT = 1e-4
+LAYERWISE_SIZE = 256
+
+
+def leaves(tree) -> dict:
+    return {f"{n}/{k}": v for n, leaf in tree.items() for k, v in leaf.items()}
+
+
+def fresh_params(tree, dtype=torch.float32) -> dict:
+    """A copy of a decoder tree that requires gradients."""
+    return {n: {k: v.detach().to(dtype).clone().requires_grad_(True) for k, v in leaf.items()}
+            for n, leaf in tree.items()}
+
+
+def first_grads(dec, enc, batch, cfg) -> tuple[float, dict]:
+    params = fresh_params(dec)
+    loss, _ = trainer.reconstruction_loss(params, enc, batch, cfg)
+    loss.backward()
+    return float(loss.detach()), {k: v.grad for k, v in leaves(params).items()}
+
+
+def first_grads_f64(dec, enc, batch, target) -> tuple[float, dict]:
+    """The same loss (pixel + feature, weights 1) in float64 on the card."""
+    params = fresh_params(dec, torch.float64)
+    enc64 = {n: {k: v.double() for k, v in leaf.items()} for n, leaf in enc.items()}
+    x = to_nchw(batch.double() / 255.0)
+    code = vgg.encode_multi_nchw(enc64, x, (target,))[target]
+    decoded = decoder.decode_nchw(params, code, target)
+    recode = vgg.encode_multi_nchw(enc64, decoded, (target,))[target]
+    loss = (decoded - x).pow(2).mean() + (recode - code).pow(2).mean()
+    loss.backward()
+    return float(loss.detach()), {k: v.grad for k, v in leaves(params).items()}
+
+
+def grad_rel(got: dict, ref: dict) -> dict:
+    return {k: float((got[k].double() - ref[k].double()).norm() / ref[k].double().norm())
+            for k in ref}
+
+
+def global_rel(got: dict, ref: dict) -> float:
+    diff = torch.cat([(got[k].double() - ref[k].double()).ravel() for k in ref])
+    return float(diff.norm() / torch.cat([ref[k].double().ravel() for k in ref]).norm())
+
+
+def same_state(a, b) -> bool:
+    """Parameters and Adam moments of two TrainStates, bitwise."""
+    fa, fb = checkpoint._flatten(trainer.state_tree(a)), checkpoint._flatten(trainer.state_tree(b))
+    return sorted(fa) == sorted(fb) and all(np.array_equal(fa[k], fb[k]) for k in fa)
+
+
+def conv_choices(batch: int) -> list:
+    """The training convs' per-shape choices at ``batch``: the forward and
+    backward ms of cuDNN and of PyTorch's own conv that the choices were
+    made on, the implementation kept in each, and both timed again on fresh
+    inputs (``check_*``), a measurement apart from the one the choice
+    read."""
+    rows = []
+    for key, t in list(convs.CONV_TIMES.items()):
+        x_shape, w_shape, dtype, _ = key
+        if x_shape[0] != batch or dtype != torch.float32:
+            continue
+        x = torch.randn(x_shape, device=DEV)
+        w = torch.randn(w_shape, device=DEV) / float(np.sqrt(np.prod(w_shape[1:])))
+        again = convs._cudnn_ok_train(x, w, torch.zeros(w_shape[0], device=DEV))
+        del x, w
+        rows.append({"input": list(x_shape), "weight": list(w_shape),
+                     **{k: v for k, v in t.items() if k.endswith("_ms")},
+                     **{f"check_{k}": v for k, v in again.items() if k.endswith("_ms")},
+                     **{f"{d}_chosen": "cudnn" if t[f"cudnn_{d}"] else "native"
+                        for d in ("fwd", "bwd")}})
+    return rows
+
+
+def phase_train(params, name):
+    """The relu5_1 decoder trained at full width on the trained bundle, its
+    batches sampled on the card from a synthetic pool."""
+    enc = params["encoder"]
+    dec0 = params["decoders"][TRAIN_TARGET]
+    cfg = trainer.TrainConfig(relu_target=TRAIN_TARGET)
+    pool_np = tdata.synthetic_pool(np.random.default_rng(SEED + 20), TRAIN_POOL, cfg.crop_size)
+    batches = tdata.device_pool_batches(pool_np, cfg.batch_size, seed=SEED, device=DEV)
+    b0 = next(batches)
+    check(b0.dtype == torch.uint8
+          and tuple(b0.shape) == (cfg.batch_size, cfg.crop_size, cfg.crop_size, 3),
+          f"pool batch {b0.dtype} {tuple(b0.shape)}")
+    reset_counts()
+
+    he = decoder.init_decoder_params(torch.Generator().manual_seed(SEED), TRAIN_TARGET, DEV)
+    he_loss64, g64 = first_grads_f64(he, enc, b0, TRAIN_TARGET)
+    he_loss32, g_he = first_grads(he, enc, b0, cfg)
+    he_rel64 = grad_rel(g_he, g64)
+    he_loss16, g_he = first_grads(he, enc, b0, dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    he_bf16_rel, he_bf16_loss_rel = global_rel(g_he, g64), abs(he_loss16 - he_loss64) / he_loss64
+    check(max(he_rel64.values()) <= TRAIN_F64_HE_LIMIT,
+          f"train: He-init f32 gradients vs float64 {max(he_rel64.values())}")
+    check(abs(he_loss32 - he_loss64) <= 1e-5 * he_loss64,
+          f"train: He-init f32 loss {he_loss32} vs float64 {he_loss64}")
+    check(he_bf16_rel <= TRAIN_BF16_HE_GRAD_LIMIT and he_bf16_loss_rel <= TRAIN_BF16_LOSS_LIMIT,
+          f"train: He-init bf16 vs float64 grads {he_bf16_rel}, loss {he_bf16_loss_rel}")
+    del g64, g_he
+    loss32, g32 = first_grads(dec0, enc, b0, cfg)
+    loss64, g64 = first_grads_f64(dec0, enc, b0, TRAIN_TARGET)
+    rel64 = grad_rel(g32, g64)
+    check(max(rel64.values()) <= TRAIN_F64_LIMIT,
+          f"train: f32 gradients vs float64 {max(rel64.values())} > {TRAIN_F64_LIMIT}")
+    check(abs(loss32 - loss64) <= 1e-4 * loss64, f"train: f32 loss {loss32} vs float64 {loss64}")
+    del g64
+    _, g_again = first_grads(dec0, enc, b0, cfg)
+    _, g_remat = first_grads(dec0, enc, b0, dataclasses.replace(cfg, remat=True))
+    repeat_bits = all(torch.equal(g32[k], g_again[k]) for k in g32)
+    remat_bits = all(torch.equal(g32[k], g_remat[k]) for k in g32)
+    check(repeat_bits, "train: the same step twice gives other gradient bits")
+    check(remat_bits, "train: remat=True changes the gradient bits")
+    del g_again, g_remat
+    loss16, g16 = first_grads(dec0, enc, b0, dataclasses.replace(cfg, compute_dtype="bfloat16"))
+    bf16_rel, bf16_loss_rel = global_rel(g16, g32), abs(loss16 - loss32) / loss32
+    check(bf16_rel <= TRAIN_BF16_GRAD_LIMIT and bf16_loss_rel <= TRAIN_BF16_LOSS_LIMIT,
+          f"train: bf16 step vs f32 grads {bf16_rel}, loss {bf16_loss_rel}")
+    del g16
+
+    # 29 timed steps, a save, the 30th step; then the saved state resumed
+    # and the 30th step again.
+    state = trainer.train_state_from_params(fresh_params(dec0), cfg)
+    batches = tdata.device_pool_batches(pool_np, cfg.batch_size, seed=SEED, device=DEV)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses = []
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(TRAIN_STEPS - 1):
+        state, m = trainer.train_step(state, enc, next(batches), cfg)
+        losses.append(m["loss"])
+    end.record()
+    enqueue_s = time.perf_counter() - t0
+    end.synchronize()
+    loop_s = time.perf_counter() - t0
+    step_ms = start.elapsed_time(end) / (TRAIN_STEPS - 1)
+    peak = torch.cuda.max_memory_allocated()
+    ckptr = checkpoint.TrainCheckpointer(ROOT / "build" / "chip_smoke" / "train_state")
+    ckptr.save(state.step, trainer.state_tree(state))
+    b_last = next(batches)
+    state, m = trainer.train_step(state, enc, b_last, cfg)
+    losses.append(m["loss"])
+    resumed = trainer.restore_train_state(ckptr.restore_latest(), cfg, DEV)
+    b_again = next(tdata.device_pool_batches(pool_np, cfg.batch_size, seed=SEED,
+                                             start_step=resumed.step, device=DEV))
+    check(torch.equal(b_again, b_last), "train: the pool's batch differs after a resume")
+    resumed, _ = trainer.train_step(resumed, enc, b_again, cfg)
+    resume_bits = same_state(state, resumed)
+    check(resume_bits, "train: save, resume and one step differ from the uninterrupted step")
+    losses = torch.stack(losses).tolist()
+    check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+
+    # One step at a time: the host's return against the card's time.
+    host_ms, card_ms = [], []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        state, _ = trainer.train_step(state, enc, next(batches), cfg)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        end.record()
+        end.synchronize()
+        card_ms.append(start.elapsed_time(end))
+    kernel_launches = read_counts()
+
+    # From He init at relu1_1 (lr 1e-3, as tests/test_trainer.py:24): the loss falls.
+    cfg1 = trainer.TrainConfig(relu_target="relu1_1", learning_rate=1e-3)
+    he = trainer.init_train_state(torch.Generator().manual_seed(SEED), cfg1, DEV)
+    batches1 = tdata.device_pool_batches(pool_np, cfg1.batch_size, seed=SEED + 1, device=DEV)
+    he_losses = []
+    for _ in range(TRAIN_STEPS):
+        he, m = trainer.train_step(he, enc, next(batches1), cfg1)
+        he_losses.append(m["loss"])
+    he_losses = torch.stack(he_losses).tolist()
+    check(all(np.isfinite(he_losses)) and np.mean(he_losses[-5:]) < 0.75 * np.mean(he_losses[:5]),
+          f"train: the relu1_1 loss from He init does not fall: {he_losses}")
+
+    # The rule keeps cuDNN's forward unless it is more than 2× slower than
+    # PyTorch's own conv, and the forward's implementation for the backward
+    # unless it is more than 2× slower there. Timed again on fresh inputs,
+    # no kept direction may be a pathological path, here more than 10×
+    # slower than the other conv's (cuDNN's FFT path: about 200×, ROADMAP
+    # queue 3).
+    choices = conv_choices(cfg.batch_size)
+    other = {"cudnn": "native", "native": "cudnn"}
+
+    def rule_holds(r):
+        fwd = "cudnn" if r["cudnn_fwd_ms"] <= 2.0 * r["native_fwd_ms"] else "native"
+        bwd = other[fwd] if r[f"{fwd}_bwd_ms"] > 2.0 * r[f"{other[fwd]}_bwd_ms"] else fwd
+        return (r["fwd_chosen"], r["bwd_chosen"]) == (fwd, bwd)
+
+    check(all(rule_holds(r) for r in choices), "train: conv choice rule")
+    slowest = max(r[f"check_{r[f'{d}_chosen']}_{d}_ms"]
+                  / r[f"check_{other[r[f'{d}_chosen']]}_{d}_ms"]
+                  for r in choices for d in ("fwd", "bwd"))
+    check(slowest <= TRAIN_CONV_SLOWDOWN_LIMIT, f"train: a chosen conv direction {slowest}× slower")
+    emit({"phase": "train", "card": card_name(), "target": TRAIN_TARGET,
+          "config": dataclasses.asdict(cfg), "pool": TRAIN_POOL,
+          "grad_vs_float64_rel": rel64, "grad_vs_float64_max": max(rel64.values()),
+          "loss_f32": loss32, "loss_f64": loss64,
+          "he_init_grad_vs_float64_max": max(he_rel64.values()),
+          "he_init_loss_f32": he_loss32, "he_init_loss_f64": he_loss64,
+          "he_init_bf16_grad_vs_float64": he_bf16_rel, "he_init_bf16_loss_rel": he_bf16_loss_rel,
+          "repeat_same_bits": repeat_bits, "remat_same_bits": remat_bits,
+          "bf16_grad_rel": bf16_rel, "bf16_loss_rel": bf16_loss_rel, "loss_bf16": loss16,
+          "losses": losses, "resume_same_bits": resume_bits,
+          "ms_per_step": step_ms, "img_per_sec": cfg.batch_size * 1e3 / step_ms,
+          "loop_host_enqueue_s": enqueue_s, "loop_s": loop_s,
+          "max_memory_allocated_bytes": peak,
+          "step_host_return_ms": host_ms, "step_card_ms": card_ms,
+          "kernel_launches": kernel_launches,
+          "he_init_relu1_1_losses": he_losses, "conv_shapes": choices,
+          "chosen_direction_slowdown_max": slowest})
+
+
+def phase_train_layerwise(params):
+    """Layerwise statistics at 256 px with subsample 4 (scripts/solve_layerwise.py:36),
+    G against float64, and the solved relu1_1 decoder against He init."""
+    enc = params["encoder"]
+    pool_np = tdata.synthetic_pool(np.random.default_rng(SEED + 21), 16, LAYERWISE_SIZE)
+    pool = torch.from_numpy(pool_np).to(DEV)
+    specs = layerwise.regression_specs()
+    stats = layerwise.init_stats(specs, DEV)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(0, len(pool), 4):
+        layerwise.accumulate_stats(stats, enc, pool[i:i + 4], subsample=4)
+    end.record()
+    end.synchronize()
+    pass_ms = start.elapsed_time(end) / (len(pool) // 4)
+
+    # One batch in f32 against the same patches summed in float64.
+    one = layerwise.accumulate_stats(layerwise.init_stats(specs, DEV), enc, pool[:4], subsample=4)
+    acts = layerwise.encoder_trace(enc, pool[:4].float() / 255.0)
+    g_rel, sym = {}, {}
+    for s in specs:
+        xin = acts[s["x_key"]]
+        if s["x_pooled"]:
+            xin = convs.upsample_nearest2(acts[s["pool_key"]])
+        P = layerwise._patches(xin, s["k"])
+        if s["x_c"] <= 64:
+            P = P[::4]
+        P = P.double()
+        G64 = P.mT @ P
+        G = one[s["dec"]]["G"]
+        g_rel[s["dec"]] = float((G.double() - G64).norm() / G64.norm())
+        sym[s["dec"]] = float((G - G.mT).abs().max() / G.abs().max())
+        del P, G64
+    check(max(g_rel.values()) <= LAYERWISE_G_LIMIT, f"layerwise G vs float64 {g_rel}")
+    check(max(sym.values()) <= 1e-6, f"layerwise G not symmetric: {sym}")
+
+    decoders = layerwise.solved_decoder_params(stats, verbose=False, device=DEV)
+    held = np.stack([tdata.synthetic_image(np.random.default_rng(SEED + 99 + i), LAYERWISE_SIZE)
+                     for i in range(4)])
+    held = torch.from_numpy(held).to(DEV)
+
+    def psnr(dec):
+        with torch.no_grad():
+            out = decoder.decode(dec, vgg.encode(enc, held, "relu1_1"), "relu1_1").clamp(0, 1)
+        return float(10 * torch.log10(1.0 / (out - held).pow(2).mean()))
+
+    solved = psnr(decoders["relu1_1"])
+    he = psnr(decoder.init_decoder_params(torch.Generator().manual_seed(SEED), "relu1_1", DEV))
+    check(solved > he + 10.0 and solved > 20.0, f"layerwise relu1_1 {solved} dB vs He init {he} dB")
+    emit({"phase": "train_layerwise", "pool": list(pool.shape), "subsample": 4,
+          "ms_per_batch_of_4": pass_ms, "G_vs_float64_rel": g_rel,
+          "G_asymmetry_max": max(sym.values()), "G_exactly_symmetric":
+              all(v == 0.0 for v in sym.values()),
+          "psnr_solved_relu1_1_db": solved, "psnr_he_init_relu1_1_db": he})
+
+
+def phase_train_cli():
+    """The training CLI as users run it: 20 steps of the relu5_1 decoder on a
+    device pool, a resume to 30, a SIGTERM mid-run and its resume, and the
+    stylize CLI on the trained decoder."""
+    import signal
+
+    work = ROOT / "build" / "chip_smoke" / "train_cli"
+    if work.exists():
+        shutil.rmtree(work)
+    ckpt, ckpt_sig = work / "ckpt", work / "ckpt_signal"
+    base = [sys.executable, "-m", "wct_tpu_torch.cli.train", "--synthetic", "--synthetic-pool", "64",
+            "--encoder-weights", "weights/bundle.npz", "--relu-target", TRAIN_TARGET,
+            "--device", DEV]
+    runs = []
+
+    def run(args):
+        t0 = time.perf_counter()
+        proc = subprocess.run(base + args, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"train CLI {args} failed:\n{proc.stdout}\n{proc.stderr}")
+        runs.append({"args": args, "seconds": time.perf_counter() - t0,
+                     "cli_says": proc.stdout.strip().splitlines()[-2:]})
+
+    def rows(d):
+        return [json.loads(line) for line in (d / "metrics.jsonl").read_text().splitlines()]
+
+    run(["--max-iter", "20", "--summary-iter", "10", "--save-iter", "20",
+         "--checkpoint-dir", str(ckpt)])
+    run(["--max-iter", "30", "--summary-iter", "10", "--save-iter", "20",
+         "--checkpoint-dir", str(ckpt), "--resume"])
+    steps = [r["step"] for r in rows(ckpt)]
+    check(steps == [10, 20, 30], f"train CLI metrics steps {steps}")
+    check(all(np.isfinite(r["loss"]) for r in rows(ckpt)), "train CLI: non-finite loss")
+    state = checkpoint.load_pytree(ckpt / "state_latest.npz")
+    check(int(state["step"]) == 30 and int(state["opt_state"][0][0]) == 30,
+          "train CLI: state_latest.npz is not at step 30")
+
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(base + ["--max-iter", "100000", "--summary-iter", "5",
+                                    "--save-iter", "100000", "--checkpoint-dir", str(ckpt_sig)],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        metrics = ckpt_sig / "metrics.jsonl"
+        while time.perf_counter() - t0 < 300 and not (metrics.exists() and metrics.read_text()):
+            time.sleep(0.5)
+            check(proc.poll() is None, "train CLI exited before SIGTERM")
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    check(proc.returncode == 0 and "checkpointing and stopping" in out,
+          f"train CLI on SIGTERM (rc {proc.returncode}):\n{out}")
+    stopped = int(checkpoint.load_pytree(ckpt_sig / "state_latest.npz")["step"])
+    runs.append({"args": "SIGTERM after the first summary", "seconds": time.perf_counter() - t0,
+                 "stopped_at": stopped})
+    run(["--max-iter", str(stopped + 5), "--summary-iter", "1", "--save-iter", "100000",
+         "--checkpoint-dir", str(ckpt_sig), "--resume"])
+    after = rows(ckpt_sig)[-1]["step"]
+    check(after == stopped + 5, f"train CLI resumed after SIGTERM to {after}, not {stopped + 5}")
+
+    # The trained decoder in a bundle the stylize CLI reads.
+    bundle = checkpoint.load_pytree(ROOT / "weights" / "bundle.npz")
+    trained = work / "trained_bundle.npz"
+    checkpoint.save_pytree(trained, {"encoder": bundle["encoder"], "decoders": {
+        TRAIN_TARGET: checkpoint.load_pytree(ckpt / f"decoder_{TRAIN_TARGET}.npz")}})
+    rng = np.random.default_rng(SEED + 22)
+    images.save_img(work / "content.png", rng.random((256, 256, 3)))
+    images.save_img(work / "style.png", rng.random((256, 256, 3)))
+    out_dir = work / "out"
+    cmd = [sys.executable, "-m", "wct_tpu_torch.cli.stylize", "--weights", str(trained),
+           "--relu-targets", TRAIN_TARGET, "--content-path", str(work / "content.png"),
+           "--style-path", str(work / "style.png"), "--out-path", str(out_dir), "--device", DEV]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"stylize CLI on the trained decoder:\n{proc.stdout}\n{proc.stderr}")
+    [out] = images.get_files(out_dir)
+    img = images.get_img(out)
+    check(img.shape == (256, 256, 3) and np.isfinite(img).all() and img.std() > 0.01,
+          f"stylize CLI on the trained decoder wrote {img.shape}")
+    runs.append({"args": "stylize --relu-targets relu5_1 on the trained decoder",
+                 "seconds": time.perf_counter() - t0})
+    emit({"phase": "train_cli", "runs": runs, "metrics": rows(ckpt)})
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2085,6 +2479,9 @@ def main() -> int:
     phase_stream_batch_gap(params)
     phase_bucketed(params)
     phase_stream_cli()
+    phase_train(params, name)
+    phase_train_layerwise(params)
+    phase_train_cli()
     small = "wct_tpu_torch/csrc/conv3x3_small.cu"
     head = ("wct_tpu_torch/csrc/encoder_head.cu", "wct_tpu/ops/junction_pallas.py:368")
     junc = ("wct_tpu_torch/csrc/junction.cu", "wct_tpu/ops/junction_pallas.py:530")

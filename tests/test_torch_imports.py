@@ -41,6 +41,8 @@ def test_port_imports_without_jax_loaded():
         "import wct_tpu_torch.ops.gram, wct_tpu_torch.ops.adain, wct_tpu_torch.ops.style_swap\n"
         "import wct_tpu_torch.utils.colors\n"
         "import wct_tpu_torch.utils.stream, wct_tpu_torch.cli.stream\n"
+        "import wct_tpu_torch.train, wct_tpu_torch.train.layerwise, wct_tpu_torch.cli.train\n"
+        "import wct_tpu_torch.utils.tb\n"
         "bad = [m for m in sys.modules\n"
         "       if m.split('.')[0] in ('jax', 'jaxlib', 'wct_tpu', 'scripts', 'triton', 'cv2')]\n"
         "assert not bad, bad\n"
@@ -112,7 +114,9 @@ def test_new_kernel_modules_are_scanned():
             "wct_tpu_torch/ops/adain.py", "wct_tpu_torch/ops/style_swap.py",
             "wct_tpu_torch/utils/colors.py", "wct_tpu_torch/utils/profiling.py",
             "wct_tpu_torch/utils/serving.py", "wct_tpu_torch/utils/stream.py",
-            "wct_tpu_torch/cli/stream.py"} <= names
+            "wct_tpu_torch/cli/stream.py", "wct_tpu_torch/train/trainer.py",
+            "wct_tpu_torch/train/data.py", "wct_tpu_torch/train/layerwise.py",
+            "wct_tpu_torch/cli/train.py", "wct_tpu_torch/utils/tb.py"} <= names
 
 
 @pytest.mark.parametrize(

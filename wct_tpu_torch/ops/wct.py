@@ -56,6 +56,7 @@ _AUTO_EIGH_MAX_C = 64
 # Where each part that is not ported yet is carried in ROADMAP.md.
 ITEM_MULTI_GPU = "ROADMAP.md queue 1 item 10 (multi-GPU)"
 ITEM_VARIANTS = "ROADMAP.md queue 1 item 11 (opt-in variants)"
+ITEM_ORBAX = "ROADMAP.md queue 1 item 12 (orbax checkpoints)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
