@@ -34,7 +34,16 @@ the card (``train``: first-step gradients against float64, bf16 against
 f32, remat and save-resume bitwise, ms per step, each conv shape's
 forward and backward times and choice), the layerwise statistics and
 solves (``train_layerwise``) and the training CLI with a resume, a
-SIGTERM and the stylize CLI on its decoder (``train_cli``).
+SIGTERM and the stylize CLI on its decoder (``train_cli``). Then the
+mesh module on four shards of the card (and on every card where there
+are more): data-parallel stylization of 8 images at 1024 px, f32 with
+the Newton–Schulz kernel and bf16, each shard bitwise equal to
+``stylize`` of its images, launches per shard (``mesh_dp``); one
+2048×2048 image split by height, the halo encoder, the combined
+covariances against float64 and each level against the unsharded
+cascade (``mesh_spatial``); the data-parallel train step against
+``train_step`` (``mesh_train``); and ``--data-parallel`` through both
+CLIs (``mesh_cli``).
 
 Each phase prints one JSON line. The line before the last lists each
 kernel with its launches in the main path's run and its times; the
@@ -45,8 +54,10 @@ does without a CUDA device or outside a checkout.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import difflib
+import io
 import json
 import shutil
 import subprocess
@@ -73,12 +84,13 @@ from wct_tpu_torch.ops.convs import (
     to_nhwc,
     upsample_nearest2_nchw,
 )
+from wct_tpu_torch.parallel import mesh as mesh_lib
 from wct_tpu_torch.train import checkpoint, layerwise, trainer
 from wct_tpu_torch.train import data as tdata
 from wct_tpu_torch.utils import images
 from wct_tpu_torch.tools.profile_sqrtm import sqrt_float64
 from wct_tpu_torch.utils.device import card_name, cuda_ms
-from wct_tpu_torch.utils.profiling import StageTimer, device_busy_share, trace
+from wct_tpu_torch.utils.profiling import StageTimer, device_busy_share, shard_times, trace
 from wct_tpu_torch.utils.serving import BucketedStylizer, bucket_shape, pad_to_bucket
 from wct_tpu_torch.utils.stream import StreamStylizer
 
@@ -2438,6 +2450,347 @@ def phase_train_cli():
     emit({"phase": "train_cli", "runs": runs, "metrics": rows(ckpt)})
 
 
+# The mesh phases run on four shards of cuda:0 (and, where there is more
+# than one card, on a mesh of every card as well). BASELINE.json's fourth
+# configuration: batch-8 1024-px content, a fixed style, data-parallel.
+MESH_SHARDS = 4
+MESH_DP_SIZE, MESH_DP_BATCH = 1024, 8
+MESH_SPATIAL_SIZE = 2048
+# The halo encoder against the unsharded one, q99 of |Δ| over the map's
+# max; the per-level teacher-forced output, q99 of |Δ|.
+MESH_ENCODER_Q99, MESH_LEVEL_Q99 = 1e-5, 5e-3
+
+
+def meshes(axis_name="data") -> dict:
+    """Four shards of cuda:0, and every card where there is more than one."""
+    out = {"4_shards_cuda0": mesh_lib.create_mesh(MESH_SHARDS, axis_name, device="cuda:0")}
+    if torch.cuda.device_count() > 1:
+        out["all_cards"] = mesh_lib.create_mesh(axis_name=axis_name)
+    return out
+
+
+def in_turns(a, b, runs=2) -> tuple[float, float]:
+    """ms of ``a`` and of ``b`` timed in turns (a, b, b, a), CUDA events on
+    the current stream."""
+    ta, tb = [], []
+    for fn, acc in ((a, ta), (b, tb), (b, tb), (a, ta)):
+        acc.append(cuda_ms(fn, iters=runs, warmup=0))
+    return float(np.mean(ta)), float(np.mean(tb))
+
+
+def gap(got, ref) -> dict:
+    d = (got - ref).abs().flatten()
+    return {"median": float(d.median()), "q99": float(torch.quantile(d[::7].float(), 0.99)),
+            "max": float(d.max()), "share_differing": float((d > 0).float().mean())}
+
+
+def counted_per_shard(fn):
+    """``fn()`` with the kernels' launches counted around each shard's
+    ``cascade.stylize`` call (``parallel.stylize_sharded`` calls it once per
+    shard): (result, [{kernel: launches}, ...])."""
+    rows, plain = [], cascade.stylize
+
+    def counted(*args, **kw):
+        before = read_counts()
+        out = plain(*args, **kw)
+        after = read_counts()
+        rows.append({k: after[k] - before[k] for k in ("ns_sqrtm", "centered_gram")})
+        return out
+
+    cascade.stylize = counted
+    try:
+        return fn(), rows
+    finally:
+        cascade.stylize = plain
+
+
+def phase_mesh_dp(params, style):
+    """Data-parallel stylization of 8 seeded 1024-px images (BASELINE
+    config 4) on the trained bundle, f32 with the Newton–Schulz kernel and
+    in the bf16 throughput configuration: each shard bitwise equal to
+    ``stylize`` of its two images, the batch held to unsharded batch 8 by
+    the stream's gates, launches per shard, ms per frame in turns."""
+    x = torch.as_tensor(np.random.default_rng(SEED + 30).random(
+        (MESH_DP_BATCH, MESH_DP_SIZE, MESH_DP_SIZE, 3), dtype=np.float32), device=DEV)
+    routes = {"f32_ns_pallas": cascade.CascadeConfig(method="newton_schulz_pallas"),
+              "bf16_throughput": cascade.CascadeConfig(**THROUGHPUT)}
+    rows = {}
+    for mesh_name, mesh in meshes().items():
+        for route, cfg in routes.items():
+            cache = cascade.precompute_style(params["encoder"], style, cfg)
+            reset_counts()
+            torch.cuda.synchronize()
+            out, per_shard = counted_per_shard(
+                lambda: mesh_lib.stylize_sharded(params, x, cache, ALPHA, cfg, mesh))
+            torch.cuda.synchronize()
+            counts = read_counts()
+            n_levels, per = len(cfg.relu_targets), MESH_DP_BATCH // len(mesh.devices)
+            want = {"ns_sqrtm": n_levels if cfg.method == "newton_schulz_pallas" else 0,
+                    "centered_gram": n_levels}
+            check(per_shard == [want] * len(mesh.devices),
+                  f"mesh_dp {route}: launches per shard {per_shard}, expected {want}")
+            check(counts == {**NO_LAUNCHES, **{k: v * len(mesh.devices) for k, v in want.items()}},
+                  f"mesh_dp {route}: launches {counts}")
+            check(tuple(out.shape) == tuple(x.shape) and bool(torch.isfinite(out).all()),
+                  f"mesh_dp {route}: output {tuple(out.shape)}")
+            for i, dev in enumerate(mesh.devices):
+                ref = cascade.stylize(mesh_lib.replicate(mesh, params, dev),
+                                      x[i * per:(i + 1) * per].to(dev),
+                                      mesh_lib.replicate(mesh, cache, dev), ALPHA, cfg)
+                check(torch.equal(out[i * per:(i + 1) * per], ref.to(out.device)),
+                      f"mesh_dp {route}: shard {i} differs from stylize of its images")
+            whole = cascade.stylize(params, x, cache, ALPHA, cfg)
+            row = {"launches_per_shard": per_shard, "launches": counts,
+                   "shards_equal_stylize_bitwise": True, "vs_batch8_whole": gap(out, whole)}
+            levels, xl = {}, x
+            for level in cfg.relu_targets:
+                one = dataclasses.replace(cfg, relu_targets=(level,))
+                ref = cascade.stylize(params, xl, cache, ALPHA, one)
+                levels[level] = gap(mesh_lib.stylize_sharded(params, xl, cache, ALPHA, one, mesh), ref)
+                xl = ref
+            row["vs_batch8_levels_teacher_forced"] = levels
+            del xl, ref, whole
+            check(row["vs_batch8_whole"]["median"] < COMPOSED_MEDIAN_LIMIT
+                  and all(v["q99"] < LEVEL_Q99_LIMIT for v in levels.values()),
+                  f"mesh_dp {route}: sharded vs batch 8 {row}")
+            ms_b8, ms_sh = in_turns(lambda: cascade.stylize(params, x, cache, ALPHA, cfg),
+                                    lambda: mesh_lib.stylize_sharded(params, x, cache, ALPHA, cfg, mesh))
+            row.update({"ms_per_frame_unsharded_b8": ms_b8 / MESH_DP_BATCH,
+                        "ms_per_frame_sharded": ms_sh / MESH_DP_BATCH,
+                        "shard_enqueue_vs_device_ms": shard_times(mesh)})
+            rows[f"{mesh_name}/{route}"] = row
+            del out, cache
+    emit({"phase": "mesh_dp", "card": card_name(), "batch": MESH_DP_BATCH, "size": MESH_DP_SIZE,
+          "alpha": ALPHA, "shards": MESH_SHARDS, "runs": rows})
+
+
+def phase_mesh_spatial(params, style):
+    """One 2048×2048 image split by height over four shards, on the WCT
+    route (f32, Newton–Schulz kernel) and on AdaIN: the halo encoder to
+    relu5_1 against the unsharded one, the combined covariances against
+    float64 at every level, the output per level teacher-forced against
+    the unsharded cascade, launches, ms in turns and peak memory."""
+    img = torch.as_tensor(np.random.default_rng(SEED + 31).random(
+        (1, MESH_SPATIAL_SIZE, MESH_SPATIAL_SIZE, 3), dtype=np.float32), device=DEV)
+    enc = params["encoder"]
+    rows = {}
+    for mesh_name, mesh in meshes("sp").items():
+        n = len(mesh.devices)
+        feats = mesh_lib.encode_spatial(enc, img, "relu5_1", mesh)
+        ref = vgg.encode(enc, img, "relu5_1")
+        d = (feats - ref.to(feats.device)).abs().flatten()
+        enc_row = {"q99_rel": float(torch.quantile(d[::3], 0.99) / ref.abs().max()),
+                   "max_rel": float(d.max() / ref.abs().max()),
+                   "bitwise_share": float((d == 0).float().mean())}
+        check(enc_row["q99_rel"] <= MESH_ENCODER_Q99, f"mesh_spatial: halo encoder {enc_row}")
+        del feats, ref, d
+        covs = {}
+        for level in cascade.DEFAULT_TARGETS:
+            # The level's map split as the cascade splits it: blocks of
+            # 16 image rows.
+            f = mesh_lib.encode_spatial(enc, img, level, mesh)
+            split = mesh_lib.shard_spatial(f, mesh, "sp", block=16 // vgg.TARGET_SCALE[level])
+            cov, _ = mesh_lib.sharded_covariance(mesh, [to_nchw(p) for p in split.shards])
+            x64 = to_nchw(f).flatten(2).double()
+            c64 = x64 - x64.mean(-1, keepdim=True)
+            covs[level] = rel_fro(cov.double(), (c64 @ c64.mT) / (x64.shape[-1] - 1))
+            del f, split, x64, c64
+        check(max(covs.values()) <= GRAM_F64_LIMIT, f"mesh_spatial: covariances vs float64 {covs}")
+        routes = {"wct_f32_ns_pallas": cascade.CascadeConfig(method="newton_schulz_pallas"),
+                  "adain_f32": cascade.CascadeConfig(transform="adain")}
+        for route, cfg in routes.items():
+            cache = cascade.precompute_style(enc, style, cfg)
+            reset_counts()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            out = mesh_lib.stylize_spatial(params, img, cache, ALPHA, cfg, mesh)
+            torch.cuda.synchronize()
+            peak_sp = torch.cuda.max_memory_allocated()
+            counts = read_counts()
+            want = {"ns_sqrtm": 5 if cfg.transform == "wct" else 0, "centered_gram": 5 * n}
+            check(counts == {**NO_LAUNCHES, **want}, f"mesh_spatial {route}: launches {counts}")
+            check(tuple(out.shape) == tuple(img.shape) and bool(torch.isfinite(out).all()),
+                  f"mesh_spatial {route}: output {tuple(out.shape)}")
+            again = mesh_lib.stylize_spatial(params, img, cache, ALPHA, cfg, mesh)
+            check(torch.equal(out, again), f"mesh_spatial {route}: two calls differ")
+            del again
+            torch.cuda.reset_peak_memory_stats()
+            whole = cascade.stylize(params, img, cache, ALPHA, cfg)
+            torch.cuda.synchronize()
+            peak_un = torch.cuda.max_memory_allocated()
+            row = {"launches": counts, "deterministic": True, "vs_unsharded_whole": gap(out, whole),
+                   "card_peak_bytes_all_shards": peak_sp, "card_peak_bytes_unsharded": peak_un,
+                   "card_peak_bytes_all_shards_over_shards": peak_sp / n}
+            levels, xl = {}, img
+            for level in cfg.relu_targets:
+                one = dataclasses.replace(cfg, relu_targets=(level,))
+                ref = cascade.stylize(params, xl, cache, ALPHA, one)
+                levels[level] = gap(mesh_lib.stylize_spatial(params, xl, cache, ALPHA, one, mesh), ref)
+                xl = ref
+            del xl, ref, whole
+            row["vs_unsharded_levels_teacher_forced"] = levels
+            check(all(v["q99"] <= MESH_LEVEL_Q99 for v in levels.values()),
+                  f"mesh_spatial {route}: per-level q99 {levels}")
+            ms_un, ms_sp = in_turns(lambda: cascade.stylize(params, img, cache, ALPHA, cfg),
+                                    lambda: mesh_lib.stylize_spatial(params, img, cache, ALPHA, cfg, mesh),
+                                    runs=1)
+            row.update({"ms_unsharded": ms_un, "ms_spatial": ms_sp})
+            rows[f"{mesh_name}/{route}"] = row
+            del out, cache
+        rows[f"{mesh_name}/encoder_relu5_1"] = enc_row
+        rows[f"{mesh_name}/covariance_vs_float64_rel_fro"] = covs
+    emit({"phase": "mesh_spatial", "card": card_name(), "size": MESH_SPATIAL_SIZE,
+          "alpha": ALPHA, "shards": MESH_SHARDS, "runs": rows})
+
+
+def by_hand_step_grads(tree, enc, batch, cfg, n) -> list:
+    """The four-shard step's all-reduce written out once more: each of
+    ``n`` ``tensor_split`` shards' gradients, weighted by b_s/B and summed
+    in shard order, in the optimizer's parameter order."""
+    total = None
+    for part in torch.tensor_split(batch, n):
+        params = fresh_params(tree)
+        loss, _ = trainer.reconstruction_loss(params, enc, part, cfg)
+        g = list(torch.autograd.grad(loss, checkpoint.tree_leaves(params)))
+        torch._foreach_mul_(g, part.shape[0] / batch.shape[0])
+        if total is None:
+            total = g
+        else:
+            torch._foreach_add_(total, g)
+    return total
+
+
+def phase_mesh_train(params):
+    """The train phase's shape (relu5_1, batch 8, crop 256): a mesh of one
+    equals ``train_step`` bitwise over two steps; four shards' first-step
+    gradients equal their all-reduce written out by hand, bitwise, and are
+    held to float64 by the bars ``train`` holds ``train_step`` to, beside
+    their distance from ``train_step``'s (whose batch-8 convs round
+    otherwise than the shards' batch-2 ones); ms per step in turns."""
+    enc, dec0 = params["encoder"], params["decoders"][TRAIN_TARGET]
+    cfg = trainer.TrainConfig(relu_target=TRAIN_TARGET)
+    pool_np = tdata.synthetic_pool(np.random.default_rng(SEED + 32), TRAIN_POOL, cfg.crop_size)
+
+    def batches():
+        return tdata.device_pool_batches(pool_np, cfg.batch_size, seed=SEED, device=DEV)
+
+    def state(tree=dec0):
+        return trainer.train_state_from_params(fresh_params(tree), cfg)
+
+    def step_grads(s) -> dict:
+        return {f"{n}/{k}": v.grad for n, leaf in s.params.items() for k, v in leaf.items()}
+
+    one = mesh_lib.create_mesh(1, device="cuda:0")
+    a, b = state(), state()
+    step1 = trainer.make_sharded_train_step(one, cfg)
+    for batch, _ in zip(batches(), range(2)):
+        a, _ = step1(a, enc, batch)
+        b, _ = trainer.train_step(b, enc, batch, cfg)
+    check(same_state(a, b), "mesh_train: a mesh of one differs from train_step")
+    rows = {"one_entry_equals_train_step_bitwise": True}
+    he = decoder.init_decoder_params(torch.Generator().manual_seed(SEED), TRAIN_TARGET, DEV)
+    for mesh_name, mesh in meshes().items():
+        step = trainer.make_sharded_train_step(mesh, cfg)
+        b0 = next(batches())
+        for start, tree, limit in (("trained", dec0, TRAIN_F64_LIMIT),
+                                   ("he_init", he, TRAIN_F64_HE_LIMIT)):
+            s_sh, m_sh = step(state(tree), enc, b0)
+            s_un, m_un = trainer.train_step(state(tree), enc, b0, cfg)
+            g_sh, g_un = step_grads(s_sh), step_grads(s_un)
+            hand = by_hand_step_grads(tree, enc, b0, cfg, len(mesh.devices))
+            same = all(torch.equal(x, y.to(x.device)) for x, y in zip(g_sh.values(), hand))
+            _, g64 = first_grads_f64(tree, enc, b0, TRAIN_TARGET)
+            row = {"equals_all_reduce_by_hand_bitwise": same,
+                   "vs_train_step_grad_rel_fro": global_rel(g_sh, g_un),
+                   "vs_train_step_grad_rel_fro_leaf_max": max(grad_rel(g_sh, g_un).values()),
+                   "vs_train_step_loss_rel": abs(float(m_sh["loss"]) - float(m_un["loss"]))
+                   / float(m_un["loss"]),
+                   "sharded_vs_float64_leaf_max": max(grad_rel(g_sh, g64).values()),
+                   "train_step_vs_float64_leaf_max": max(grad_rel(g_un, g64).values())}
+            rows[f"{mesh_name}/{start}"] = row
+            check(same, f"mesh_train {mesh_name} {start}: gradients differ from the all-reduce by hand")
+            check(row["sharded_vs_float64_leaf_max"] <= limit,
+                  f"mesh_train {mesh_name} {start}: sharded gradients vs float64 {row}")
+            del s_sh, s_un, g_sh, g_un, hand, g64
+        s_sh, s_un = state(), state()
+        it = batches()
+        ms_un, ms_sh = in_turns(lambda: trainer.train_step(s_un, enc, next(it), cfg),
+                                lambda: step(s_sh, enc, next(it)), runs=3)
+        rows[f"{mesh_name}/times"] = {"ms_per_step_unsharded": ms_un, "ms_per_step_sharded": ms_sh,
+                                      "img_per_sec_unsharded": cfg.batch_size * 1e3 / ms_un,
+                                      "img_per_sec_sharded": cfg.batch_size * 1e3 / ms_sh}
+    emit({"phase": "mesh_train", "card": card_name(), "target": TRAIN_TARGET,
+          "batch": cfg.batch_size, "crop": cfg.crop_size, "shards": MESH_SHARDS, "runs": rows})
+
+
+def phase_mesh_cli():
+    """``--data-parallel`` through both CLIs, as users run them: the stylize
+    CLI with and without the flag (each its own process, so each times its
+    conv shapes afresh: their largest difference printed, held to the
+    fused-route bound), the same two runs in
+    this process (one conv table: the same files, on one card a mesh of
+    one), and the train CLI for four steps."""
+    from wct_tpu_torch.cli import stylize as stylize_cli
+
+    work = ROOT / "build" / "chip_smoke" / "mesh_cli"
+    if work.exists():
+        shutil.rmtree(work)
+    c_dir = work / "content"
+    c_dir.mkdir(parents=True)
+    rng = np.random.default_rng(SEED + 33)
+    n_dev = torch.cuda.device_count()
+    for i in range(2 * n_dev):
+        images.save_img(c_dir / f"c{i}.png", rng.random((256, 320, 3)))
+    images.save_img(work / "style.png", rng.random((256, 256, 3)))
+    runs, outs = [], {}
+
+    def argv(out, extra):
+        return ["--weights", "weights/bundle.npz", "--method", "newton_schulz_pallas",
+                "--content-path", str(c_dir), "--style-path", str(work / "style.png"),
+                "--out-path", str(work / out), "--batch-size", str(2 * n_dev),
+                "--alpha", str(ALPHA), "--device", DEV, *extra]
+
+    for name, extra in (("data_parallel", ["--data-parallel"]), ("plain", [])):
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "wct_tpu_torch.cli.stylize", *argv(name, extra)],
+                              cwd=ROOT, capture_output=True, text=True, timeout=600)
+        check(proc.returncode == 0, f"stylize CLI {extra}:\n{proc.stdout}\n{proc.stderr}")
+        outs[name] = images.get_files(work / name)
+        runs.append({"cli": "stylize", "args": extra, "seconds": time.perf_counter() - t0,
+                     "cli_says": proc.stdout.strip().splitlines()[-1]})
+        with contextlib.redirect_stdout(io.StringIO()):
+            stylize_cli.main(argv(f"{name}_in_process", extra))
+        outs[f"{name}_in_process"] = images.get_files(work / f"{name}_in_process")
+    names = {k: [Path(p).name for p in v] for k, v in outs.items()}
+    check(len(names["plain"]) == 2 * n_dev and all(v == names["plain"] for v in names.values()),
+          f"stylize CLI outputs {names}")
+
+    def max_diff(a, b):
+        return max(float(np.abs(images.get_img(x) - images.get_img(y)).max())
+                   for x, y in zip(outs[a], outs[b]))
+
+    same = all(Path(x).read_bytes() == Path(y).read_bytes()
+               for x, y in zip(outs["plain_in_process"], outs["data_parallel_in_process"]))
+    check(same or n_dev > 1, "stylize CLI --data-parallel on one card, in one process, wrote other files")
+    across = max_diff("plain", "data_parallel")
+    check(across <= FUSED_MAX_LIMIT, f"stylize CLI with and without --data-parallel differ by {across}")
+    cmd = [sys.executable, "-m", "wct_tpu_torch.cli.train", "--synthetic", "--synthetic-pool", "16",
+           "--encoder-weights", "weights/bundle.npz", "--relu-target", "relu3_1",
+           "--batch-size", str(2 * n_dev), "--crop-size", "128", "--max-iter", "4",
+           "--summary-iter", "2", "--save-iter", "4", "--checkpoint-dir", str(work / "ckpt"),
+           "--device", DEV, "--data-parallel"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"train CLI --data-parallel:\n{proc.stdout}\n{proc.stderr}")
+    steps = [json.loads(line)["step"] for line in (work / "ckpt" / "metrics.jsonl").read_text().splitlines()]
+    check(steps == [2, 4], f"train CLI --data-parallel steps {steps}")
+    runs.append({"cli": "train", "args": ["--data-parallel"], "seconds": time.perf_counter() - t0,
+                 "cli_says": proc.stdout.strip().splitlines()[-2:]})
+    emit({"phase": "mesh_cli", "card": card_name(), "cards": n_dev, "in_process_same_files": same,
+          "across_processes_max_abs": across,
+          "subprocess_vs_in_process_max_abs": max_diff("plain", "plain_in_process"), "runs": runs})
+
+
 def main() -> int:
     name = phase_device()
     phase_build()
@@ -2482,6 +2835,10 @@ def main() -> int:
     phase_train(params, name)
     phase_train_layerwise(params)
     phase_train_cli()
+    phase_mesh_dp(params, style)
+    phase_mesh_spatial(params, style)
+    phase_mesh_train(params)
+    phase_mesh_cli()
     small = "wct_tpu_torch/csrc/conv3x3_small.cu"
     head = ("wct_tpu_torch/csrc/encoder_head.cu", "wct_tpu/ops/junction_pallas.py:368")
     junc = ("wct_tpu_torch/csrc/junction.cu", "wct_tpu/ops/junction_pallas.py:530")

@@ -19,6 +19,17 @@ from wct_tpu_torch.ops import gram, reductions
 BOUND = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _feat(rng, h=12, w=10, c=8, scale=1.0, shift=0.0, relu=False):
     f = rng.standard_normal((h, w, c)) * scale + shift
     return (np.maximum(f, 0) if relu else f).astype(np.float32)

@@ -28,6 +28,17 @@ SIZE = 128
 KW = dict(method="newton_schulz_pallas", fuse_junction=True)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 @pytest.fixture(scope="module")
 def setup():
     rng = np.random.default_rng(9)

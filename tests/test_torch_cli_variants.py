@@ -11,6 +11,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from wct_tpu.cli import common as jcommon
 from wct_tpu.cli import stylize as jstylize
@@ -19,6 +20,17 @@ from wct_tpu_torch.cli import stylize as tstylize
 from wct_tpu_torch.utils import colors, images
 
 ROOT = Path(__file__).resolve().parent.parent
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture
@@ -132,10 +144,19 @@ def _dests(module, monkeypatch):
 def test_flags_the_port_does_not_carry_raise(tiny_imgs, monkeypatch):
     """Every flag of the reference's stylize CLI is accepted but the two that
     read converted checkpoints; those the port does not carry raise, naming
-    their ROADMAP.md item; illegal combinations give the reference's error."""
+    their ROADMAP.md item; illegal combinations give the reference's error.
+    ``--data-parallel`` is carried: on the CPU (a mesh of one) it writes the
+    same files as the run without it, and refuses ``--coral`` as the
+    reference does."""
     c_dir, s_dir, o_dir = tiny_imgs
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        _main(c_dir, s_dir, o_dir, "--data-parallel")
+    flags = ("--relu-targets", "relu2_1", "relu1_1", "--content-size", "32")
+    dp = _main(c_dir, s_dir, o_dir, *flags, "--data-parallel")
+    ref = _main(c_dir, s_dir, o_dir.with_name("ref"), *flags)
+    assert [Path(p).name for p in dp] == [Path(p).name for p in ref] == ["c1_s1.png", "c1_s2.png"]
+    for a, b in zip(dp, ref):
+        assert Path(a).read_bytes() == Path(b).read_bytes()
+    with pytest.raises(SystemExit, match="--coral processes one pair"):
+        _main(c_dir, s_dir, o_dir, "--data-parallel", "--coral")
     for flag in ("--fold", "--ring-conv"):
         with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
             _config(tcommon, [flag])

@@ -6,11 +6,23 @@ reference's on the same inputs.
 
 import numpy as np
 import pytest
+import torch
 
 from wct_tpu.utils import colors as jcolors
 from wct_tpu.utils import images as jimages
 from wct_tpu_torch.utils import colors as tcolors
 from wct_tpu_torch.utils import images as timages
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 def test_ycc_matches_reference_and_round_trips():

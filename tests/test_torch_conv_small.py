@@ -22,6 +22,17 @@ from wct_tpu_torch.ops import conv_small
 from wct_tpu_torch.ops import convs as tconvs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _bf16(a):
     """Round f32 numpy values to bf16, returned as f32 numpy."""
     return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float32))

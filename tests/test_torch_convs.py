@@ -14,6 +14,17 @@ from wct_tpu.ops import convs as jconvs
 from wct_tpu_torch.ops import convs as tconvs
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _oihw(w):
     return torch.from_numpy(np.ascontiguousarray(w.transpose(3, 2, 0, 1)))
 

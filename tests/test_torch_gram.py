@@ -20,6 +20,17 @@ from wct_tpu_torch.ops import wct as twct
 SHAPES = [(132, 512), (1000, 64), (4096, 128), (7, 256)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _features(n, c, seed=0):
     """relu-like features with a mean well away from zero."""
     rng = np.random.default_rng(seed + n)

@@ -19,6 +19,17 @@ from wct_tpu_torch.ops import gram
 from wct_tpu_torch.ops import wct as twct
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _relu_map(n, c, seed, zeros=0.77):
     """``[N, C]`` f32 ReLU features, ``zeros`` of them exactly 0."""
     rng = np.random.default_rng(seed)

@@ -14,6 +14,17 @@ PORT_FILES = sorted((ROOT / "wct_tpu_torch").rglob("*.py")) + [ROOT / "chip_smok
 FORBIDDEN = ("jax", "jaxlib", "wct_tpu", "scripts")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _imported_roots(path):
     roots = set()
     for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):

@@ -1,0 +1,94 @@
+"""The port's mesh module on the card: a mesh of two shards of ``cuda:0``.
+
+Every test here needs an NVIDIA GPU and skips without one; run them on
+the card's machine with
+
+    python -m pytest --noconftest -q -m cuda tests/test_torch_mesh_cuda.py
+"""
+
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from wct_tpu_torch.models import cascade
+from wct_tpu_torch.ops import gram
+from wct_tpu_torch.parallel import mesh as tmesh
+from wct_tpu_torch.train import checkpoint as tck
+from wct_tpu_torch.train import data as tdata
+from wct_tpu_torch.train import trainer as tt
+
+pytestmark = pytest.mark.cuda
+
+BUNDLE = Path(__file__).resolve().parent.parent / "weights" / "bundle.npz"
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda", 0)
+
+
+@pytest.fixture
+def params(card):
+    return tck.params_from_numpy(tck.load_pytree(BUNDLE), card)
+
+
+def test_dp_equals_stylize_per_shard(card, params):
+    """Two shards of cuda:0, each on its own stream: each shard's output is
+    ``stylize`` of the same two images, bitwise, and both kernels ran."""
+    rng = np.random.default_rng(0)
+    content = rng.random((4, 128, 128, 3), np.float32)
+    cfg = cascade.CascadeConfig(method="newton_schulz_pallas")
+    cache = cascade.precompute_style(params["encoder"], rng.random((128, 128, 3), np.float32), cfg)
+    mesh = tmesh.create_mesh(2, device="cuda:0")
+    assert mesh.devices == (card, card) and len(mesh.streams) == 2
+    launches = gram.centered_gram_cuda.launches
+    out = tmesh.stylize_sharded(params, content, cache, 0.6, cfg, mesh)
+    torch.cuda.synchronize()
+    assert gram.centered_gram_cuda.launches - launches == 2 * 5
+    for i in range(2):
+        ref = cascade.stylize(params, content[2 * i:2 * i + 2], cache, 0.6, cfg)
+        assert torch.equal(out[2 * i:2 * i + 2], ref)
+
+
+def test_combined_gram_against_float64(card):
+    """Kernel Grams of three uneven height shards, combined: ≤ 1e-6 from
+    float64 in relative Frobenius norm (the card's covariance bar)."""
+    rng = np.random.default_rng(1)
+    f = np.maximum(rng.standard_normal((2, 256, 48, 40)) + 0.2, 0).astype(np.float32)
+    mesh = tmesh.create_mesh(3, device="cuda:0")
+    feats = [t.to(card) for t in torch.split(torch.from_numpy(f), [16, 24, 8], dim=2)]
+    cov, mean = tmesh.sharded_covariance(mesh, feats)
+    x = f.astype(np.float64).reshape(2, 256, -1)
+    mu = x.mean(-1)
+    d = x - mu[..., None]
+    ref = d @ d.transpose(0, 2, 1) / (x.shape[-1] - 1)
+    got = cov.cpu().numpy()
+    assert (np.linalg.norm(got - ref, axis=(1, 2)) / np.linalg.norm(ref, axis=(1, 2))).max() <= 1e-6
+    assert np.abs(mean.cpu().numpy() - mu).max() <= 1e-6 * np.abs(mu).max()
+
+
+def test_one_shard_train_step_is_train_step(card, params):
+    """A mesh of one is ``train_step``: the same parameters and Adam
+    moments, bitwise, after two steps."""
+    cfg = tt.TrainConfig(relu_target="relu3_1", batch_size=4, crop_size=64)
+    batch = torch.from_numpy(np.stack([tdata.synthetic_image(np.random.default_rng(i), 64)
+                                       for i in range(4)])).to(card)
+    step = tt.make_sharded_train_step(tmesh.create_mesh(1, device="cuda:0"), cfg)
+
+    def state():
+        return tt.train_state_from_params(
+            tck._map_tree(lambda t: t.clone(), params["decoders"]["relu3_1"]), cfg)
+
+    got, ref = state(), state()
+    for _ in range(2):
+        got, _ = step(got, params["encoder"], batch)
+        ref, _ = tt.train_step(ref, params["encoder"], batch, cfg)
+    torch.cuda.synchronize()
+    for a, b in zip(got.optimizer.param_groups[0]["params"], ref.optimizer.param_groups[0]["params"]):
+        assert torch.equal(a, b)
+        sa, sb = got.optimizer.state[a], ref.optimizer.state[b]
+        assert torch.equal(sa["exp_avg"], sb["exp_avg"]) and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])

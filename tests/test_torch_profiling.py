@@ -9,6 +9,17 @@ import torch
 from wct_tpu_torch.utils import profiling
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def test_stage_timer_accumulates():
     t = profiling.StageTimer()
     x = torch.arange(8.0)

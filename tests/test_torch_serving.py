@@ -12,6 +12,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from wct_tpu.models import cascade as jcascade
 from wct_tpu.train import checkpoint as jck
@@ -23,6 +24,17 @@ from wct_tpu_torch.utils import serving
 BUNDLE = Path(__file__).resolve().parent.parent / "weights" / "bundle.npz"
 TARGETS = ("relu2_1", "relu1_1")
 METHOD = "newton_schulz"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.mark.parametrize("g", [16, 32, 128])

@@ -26,6 +26,17 @@ BUNDLE = Path(__file__).resolve().parent.parent / "weights" / "bundle.npz"
 BOUND = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _spd(rng, c, cond=100.0):
     """Random SPD matrix with controlled condition number (tests/test_sqrtm.py)."""
     q, _ = np.linalg.qr(rng.standard_normal((c, c)))

@@ -15,6 +15,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 from wct_tpu.cli import stream as jstream_cli
 from wct_tpu.models import cascade as jcascade
@@ -31,6 +32,17 @@ BUNDLE = Path(__file__).resolve().parent.parent / "weights" / "bundle.npz"
 TWO = ("relu2_1", "relu1_1")
 ONE = ("relu1_1",)
 METHOD = "newton_schulz"
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
 
 
 @pytest.fixture(scope="module")

@@ -20,6 +20,17 @@ from wct_tpu_torch.ops import style_swap as tswap
 BOUND = 1e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _close(got, ref, bound=BOUND):
     got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
     assert got.shape == ref.shape

@@ -141,8 +141,17 @@ def test_train_cli_init_decoder_and_resume_precedence(tmp_path):
 
 
 def test_train_cli_unported_options_name_their_roadmap_items(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 10"):
-        cli.main(SMALL + ["--checkpoint-dir", str(tmp_path), "--data-parallel"])
+    """``--data-parallel`` is carried (ROADMAP.md queue 1 item 10): on the
+    CPU, a mesh of one, it trains as without it, the same bits; orbax
+    still names its item."""
+    decs = []
+    for i, extra in enumerate(([], ["--data-parallel"])):
+        ckpt = tmp_path / f"dp{i}"
+        cli.main(SMALL + ["--checkpoint-dir", str(ckpt), "--max-iter", "2", "--save-iter", "2",
+                          "--summary-iter", "1", "--synthetic-pool", "4", *extra])
+        decs.append(tck._flatten(tck.load_pytree(ckpt / "decoder_relu1_1.npz")))
+    for k, v in decs[0].items():
+        np.testing.assert_array_equal(decs[1][k], v, err_msg=k)
     with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
         cli.main(SMALL + ["--checkpoint-dir", str(tmp_path), "--ckpt-format", "orbax",
                           "--max-iter", "1"])

@@ -20,6 +20,17 @@ METHODS = ["eigh", "newton_schulz_pallas", "newton_schulz", "auto"]
 BOUND = 2e-5
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _feats(c, seed):
     """Correlated, relu-like content [24, 20, C] and style [18, 16, C]."""
     rng = np.random.default_rng(seed)

@@ -31,6 +31,17 @@ from wct_tpu_torch.train import checkpoint as tck
 BOUND = {"eigh": 1e-5, "newton_schulz": 5e-5}
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread for these small CPU tensors: the suite runs in
+    parallel workers, and torch's OpenMP threads spinning on a loaded
+    machine made a 30-step test take 150 s instead of 1."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
 def _feats(c, seed, n_c=24 * 20, n_s=18 * 16):
     """Correlated, relu-like content ``[n_c, C]`` and style ``[n_s, C]`` as maps."""
     rng = np.random.default_rng(seed)

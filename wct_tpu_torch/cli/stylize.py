@@ -13,13 +13,15 @@ image; same-shape content images are batched (``--batch-size``) and
 served through ``stylize_microbatched``, so an output does not depend
 on how many same-shape files were in the run. ``--interp-weights``
 blends every style of ``--style-path`` into one; ``--coral`` recolours
-the style toward each content image, one pair at a time. Runs on
-``--device`` (default cuda).
+the style toward each content image, one pair at a time.
+``--data-parallel`` splits each batch over every card of ``--device``
+(``parallel.stylize_sharded``). Runs on ``--device`` (default cuda).
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 from collections import defaultdict
 from pathlib import Path
@@ -28,7 +30,7 @@ import numpy as np
 
 from wct_tpu_torch.cli import common
 from wct_tpu_torch.models import cascade
-from wct_tpu_torch.ops.wct import ITEM_MULTI_GPU, not_ported
+from wct_tpu_torch.parallel import mesh as mesh_lib
 from wct_tpu_torch.utils import colors, images
 
 
@@ -59,8 +61,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="blend ALL styles in --style-path with these weights "
                         "instead of iterating them")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard each batch over all local devices: not ported "
-                        "(ROADMAP.md queue 1 item 10)")
+                   help="shard each batch over all local devices "
+                        "(parallel.stylize_sharded); --batch-size must be a "
+                        "multiple of the device count")
     return p.parse_args(argv)
 
 
@@ -126,8 +129,6 @@ def _save_outputs(stylized_batch, contents, names, s_path, args, out_dir):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.data_parallel:
-        raise not_ported("--data-parallel", ITEM_MULTI_GPU)
     cfg = common.config_from_args(args)
     params = common.load_params(args)
     out_dir = Path(args.out_path)
@@ -150,6 +151,23 @@ def main(argv=None) -> None:
                 "recolors the style per content image while interpolation "
                 "blends one shared style-stat cache"
             )
+
+    stylize_fn = None  # the default: cascade.stylize on one device
+    if args.data_parallel:
+        mesh = mesh_lib.create_mesh(device=args.device)
+        n_dev = len(mesh.devices)
+        if args.batch_size % n_dev:
+            raise SystemExit(
+                f"--data-parallel: --batch-size {args.batch_size} must be "
+                f"a multiple of the device count ({n_dev})"
+            )
+        if args.coral:
+            raise SystemExit(
+                "--coral processes one pair at a time and cannot shard; "
+                "drop --data-parallel or --coral"
+            )
+        stylize_fn = functools.partial(mesh_lib.stylize_sharded, mesh=mesh)
+        print(f"[stylize] data-parallel over {n_dev} devices")
 
     t_start = time.perf_counter()
     n_out = 0
@@ -192,7 +210,7 @@ def main(argv=None) -> None:
                     # must not depend on len(group).
                     out = cascade.stylize_microbatched(
                         params, np.stack(arrs), cache, args.alpha, cfg,
-                        microbatch=args.batch_size,
+                        microbatch=args.batch_size, stylize_fn=stylize_fn,
                     )
                     _save_outputs(out.cpu().numpy(), arrs, [Path(p).stem for p in chunk],
                                   s_path, args, out_dir)

@@ -15,11 +15,14 @@ SIGTERM/SIGINT, in the JAX package's layout, so either package resumes
 it; ``decoder_<target>.npz`` is the decoder in the layout both stylize
 CLIs read. Metrics go to ``metrics.jsonl``; they stay on the device
 between summary steps, so the loop never waits on the card otherwise.
+``--data-parallel`` splits each batch over every card of ``--device``
+(``trainer.make_sharded_train_step``) when there is more than one.
 """
 
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import signal
 import threading
@@ -30,7 +33,7 @@ import numpy as np
 import torch
 
 from wct_tpu_torch.models import decoder, vgg
-from wct_tpu_torch.ops.wct import ITEM_MULTI_GPU, not_ported
+from wct_tpu_torch.parallel import mesh as mesh_lib
 from wct_tpu_torch.train import checkpoint
 from wct_tpu_torch.train.data import (
     DevicePrefetcher,
@@ -43,6 +46,7 @@ from wct_tpu_torch.train.trainer import (
     TrainConfig,
     eval_step,
     init_train_state,
+    make_sharded_train_step,
     restore_train_state,
     state_tree,
     train_state_from_params,
@@ -107,8 +111,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="recompute forward activations in the backward "
                         "pass (fits larger crops/batches in device memory)")
     p.add_argument("--data-parallel", action="store_true",
-                   help="shard the batch over all local devices: not ported "
-                        "(ROADMAP.md queue 1 item 10)")
+                   help="shard the batch over all local devices "
+                        "(trainer.make_sharded_train_step; one device trains "
+                        "as without it)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default cuda; 'cpu' for tests)")
@@ -144,21 +149,23 @@ def _config(args) -> TrainConfig:
     )
 
 
-def _batches(args, cfg: TrainConfig, dev: torch.device, start_step: int):
+def _batches(args, cfg: TrainConfig, dev: torch.device, start_step: int, pool: int):
+    """Training batches on ``dev``: from a device-resident pool of ``pool``
+    synthetic images, or through the prefetcher (synthetic images, from
+    ``--synthetic-pool`` images on the host when ``pool`` is 0, or files)."""
     if args.synthetic or not args.content_path:
         if not args.synthetic:
             print("[train] NOTE: no --content-path; using synthetic images")
-        if args.synthetic_pool > 0:
-            pool_np = synthetic_pool(
-                np.random.default_rng(args.seed), args.synthetic_pool, cfg.crop_size
-            )
-            print(f"[train] device-resident pool: {args.synthetic_pool} images "
+        if pool > 0:
+            pool_np = synthetic_pool(np.random.default_rng(args.seed), pool, cfg.crop_size)
+            print(f"[train] device-resident pool: {pool} images "
                   f"({pool_np.nbytes / 1e6:.0f} MB uploaded once), on-device "
                   "sampling + augmentation")
             return device_pool_batches(
                 pool_np, cfg.batch_size, args.seed, start_step=start_step, device=dev
             )
-        batches = synthetic_batches(cfg.batch_size, cfg.crop_size, args.seed, pool_size=0)
+        batches = synthetic_batches(cfg.batch_size, cfg.crop_size, args.seed,
+                                    pool_size=args.synthetic_pool)
     else:
         paths = images.get_files(args.content_path)
         print(f"[train] {len(paths)} training images")
@@ -182,8 +189,6 @@ def _val_batch(args, cfg: TrainConfig, dev: torch.device):
 
 def main(argv=None) -> None:
     args = parse_args(argv)
-    if args.data_parallel:
-        raise not_ported("--data-parallel (data-parallel training)", ITEM_MULTI_GPU)
     dev = resolve_device(args.device)
     cfg = _config(args)
     ckpt_dir = Path(args.checkpoint_dir)
@@ -206,7 +211,19 @@ def main(argv=None) -> None:
             state = restore_train_state(tree, cfg, dev)
             print(f"[train] resumed ({args.ckpt_format}) at step {state.step}")
 
-    batches = _batches(args, cfg, dev, state.step)
+    step_fn = functools.partial(train_step, cfg=cfg)
+    pool = args.synthetic_pool
+    mesh = mesh_lib.create_mesh(device=args.device) if args.data_parallel else None
+    if mesh is not None and len(mesh.devices) > 1:
+        step_fn = make_sharded_train_step(mesh, cfg)
+        print(f"[train] data-parallel over {len(mesh.devices)} devices")
+        if pool > 0 and (args.synthetic or not args.content_path):
+            # As the reference: the pool would need sharding per device.
+            print("[train] NOTE: --synthetic-pool device residency is disabled "
+                  "under --data-parallel (the pool would need per-device "
+                  "sharding); falling back to host prefetch")
+            pool = 0
+    batches = _batches(args, cfg, dev, state.step, pool)
     val_batch = _val_batch(args, cfg, dev)
 
     # Save on a signal: SIGTERM/SIGINT sets a flag; the loop checkpoints
@@ -236,7 +253,7 @@ def main(argv=None) -> None:
     try:
         with (ckpt_dir / "metrics.jsonl").open("a") as log_file:
             for batch in batches:
-                state, metrics = train_step(state, enc_params, batch, cfg)
+                state, metrics = step_fn(state, enc_params, batch)
                 step = state.step
                 if step % cfg.summary_iter == 0:
                     # The one host read of the window: every metric at once.

@@ -320,26 +320,38 @@ def _transform_level(
     b, c, h, w = feats.shape
     x = feats.reshape(b, c, h * w)
     if cfg.swap5 and level == "relu5_1":
-        w_c, mu_c = wct_ops.whitening_kernel_cn(
-            x, method=cfg.method, soft_trunc=cfg.soft_trunc,
-            ns_iters=cfg.ns_iters_for(level), rel_trunc=cfg.rel_trunc,
-        )
-        white = swap_ops.whiten_cn(x, w_c, mu_c).reshape(b, c, h, w)
-        swapped = swap_ops.style_swap_nchw(
-            white, style.fs_white, cfg.ss_alpha, cfg.ss_patch_size, cfg.ss_stride
-        ).reshape(b, c, h * w)
-        colored = style.stats.kernel.float().mT @ swapped + style.stats.mean.float()[:, None]
-        alpha = scalar_on(alpha, x.device)
-        out = (alpha * colored + (1.0 - alpha) * x.float()).to(x.dtype)
-    elif cfg.transform == "adain":
+        w_c, mu_c = wct_ops.whitening_kernel_cn(x, **wct_kw(cfg, level))
+        return swap_level(feats, w_c, mu_c, style, alpha, cfg)
+    if cfg.transform == "adain":
         out = adain_ops.adain_from_stats_cn(x, style.adain, alpha)
     else:
-        out = wct_ops.wct_from_stats_cn(
-            x, style.stats, alpha, method=cfg.method, groups=cfg.wct_groups,
-            soft_trunc=cfg.soft_trunc, ns_iters=cfg.ns_iters_for(level),
-            rel_trunc=cfg.rel_trunc,
-        )
+        out = wct_ops.wct_from_stats_cn(x, style.stats, alpha, **wct_kw(cfg, level))
     return out.reshape(b, c, h, w)
+
+
+def wct_kw(cfg: CascadeConfig, level: str) -> dict:
+    """The keyword arguments of the content whitening at ``level`` (the
+    swap level whitens without groups)."""
+    groups = 1 if (cfg.swap5 and level == "relu5_1") else cfg.wct_groups
+    return dict(method=cfg.method, groups=groups, soft_trunc=cfg.soft_trunc,
+                ns_iters=cfg.ns_iters_for(level), rel_trunc=cfg.rel_trunc)
+
+
+def swap_level(
+    feats: torch.Tensor, w_c: torch.Tensor, mu_c: torch.Tensor, style: LevelStyle,
+    alpha, cfg: CascadeConfig,
+) -> torch.Tensor:
+    """The swap5 level on NCHW relu5_1 ``feats`` whitened by ``(w_c, mu_c)``:
+    the style-swap, the style's coloring and the α-blend."""
+    b, c, h, w = feats.shape
+    x = feats.reshape(b, c, h * w)
+    white = swap_ops.whiten_cn(x, w_c, mu_c).reshape(b, c, h, w)
+    swapped = swap_ops.style_swap_nchw(
+        white, style.fs_white, cfg.ss_alpha, cfg.ss_patch_size, cfg.ss_stride
+    ).reshape(b, c, h * w)
+    colored = style.stats.kernel.float().mT @ swapped + style.stats.mean.float()[:, None]
+    alpha = scalar_on(alpha, x.device)
+    return (alpha * colored + (1.0 - alpha) * x.float()).to(x.dtype).reshape(b, c, h, w)
 
 
 def _level_affine(feats: torch.Tensor, level: str, style: LevelStyle, alpha, cfg: CascadeConfig):
@@ -349,10 +361,23 @@ def _level_affine(feats: torch.Tensor, level: str, style: LevelStyle, alpha, cfg
     x = feats.flatten(2)
     if cfg.transform == "adain":
         return adain_ops.adain_transform_cn(x, style.adain, alpha)
-    return wct_ops.wct_transform_cn(
-        x, style.stats, alpha, method=cfg.method, groups=cfg.wct_groups,
-        soft_trunc=cfg.soft_trunc, ns_iters=cfg.ns_iters_for(level), rel_trunc=cfg.rel_trunc,
-    )
+    return wct_ops.wct_transform_cn(x, style.stats, alpha, **wct_kw(cfg, level))
+
+
+def padded_input(content, cfg: CascadeConfig, device: torch.device):
+    """Images ``[B, H, W, 3]`` as the NCHW map the cascade runs on, in
+    ``cfg.dtype`` on ``device``, padded up to multiples of the deepest
+    level's pool factor: ``(x, H, W)``, with the size to crop back to."""
+    content = _as_images(content, device)
+    _, h, w, _ = content.shape
+    mult = max(vgg.TARGET_SCALE[t] for t in cfg.relu_targets)
+    pad_h = (-h) % mult
+    pad_w = (-w) % mult
+    x = to_nchw(content).to(cfg.dtype)
+    if pad_h or pad_w:
+        mode = "reflect" if (pad_h < h and pad_w < w) else "replicate"
+        x = F.pad(x, (0, pad_w, 0, pad_h), mode=mode)
+    return x, h, w
 
 
 def stylize_fn(
@@ -367,15 +392,7 @@ def stylize_fn(
     to bf16 on entry and the clipped result back to f32.
     """
     set_numerics(cfg.dtype)
-    content = _as_images(content, params_device(params))
-    _, h, w, _ = content.shape
-    mult = max(vgg.TARGET_SCALE[t] for t in cfg.relu_targets)
-    pad_h = (-h) % mult
-    pad_w = (-w) % mult
-    x = to_nchw(content).to(cfg.dtype)
-    if pad_h or pad_w:
-        mode = "reflect" if (pad_h < h and pad_w < w) else "replicate"
-        x = F.pad(x, (0, pad_w, 0, pad_h), mode=mode)
+    x, h, w = padded_input(content, cfg, params_device(params))
     # Fused-junction eligibility is a static rule on the (padded) shape;
     # ineligible shapes take the unfused path.
     junction_ok = cfg.fuse_junction and x.shape[2] % 16 == 0 and x.shape[3] % 16 == 0
@@ -472,6 +489,7 @@ def stylize_microbatched(
     alpha,
     cfg: CascadeConfig,
     microbatch: int = 8,
+    stylize_fn=None,
 ) -> torch.Tensor:
     """Batch-size-independent serving: pad and chunk to a fixed batch.
 
@@ -481,9 +499,17 @@ def stylize_microbatched(
     cuDNN (``utils.device.set_numerics``) an image's output is
     bitwise-independent of the batch it was submitted in. Batch entries
     are independent, so a slot never depends on its neighbours' data.
+
+    ``stylize_fn`` swaps the per-chunk executor (default ``stylize``) and
+    keeps the pad and chunk discipline: e.g. ``parallel.stylize_sharded``
+    with its mesh bound by ``functools.partial``, for data-parallel
+    serving, where ``microbatch`` should be a multiple of the mesh's
+    size (``wct_tpu/models/cascade.py:762-815``).
     """
     if microbatch < 1:
         raise ValueError(f"microbatch must be ≥ 1, got {microbatch}")
+    if stylize_fn is None:
+        stylize_fn = stylize
     content = _as_images(content, params_device(params))
     b = content.shape[0]
     if b == 0:
@@ -494,6 +520,6 @@ def stylize_microbatched(
         pad = microbatch - chunk.shape[0]
         if pad:
             chunk = torch.cat([chunk, chunk[-1:].expand(pad, -1, -1, -1)])
-        out = stylize(params, chunk, style_cache, alpha, cfg)
+        out = stylize_fn(params, chunk, style_cache, alpha, cfg)
         outs.append(out[: microbatch - pad])
     return torch.cat(outs)

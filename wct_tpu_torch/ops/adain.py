@@ -83,8 +83,17 @@ def adain_from_stats_cn(
 ) -> torch.Tensor:
     """AdaIN of content ``x [B, C, N]`` with cached style moments → ``[B, C, N]``
     in ``x``'s type (``wct_tpu/ops/adain.py:46-59``)."""
+    return adain_apply_cn(x, *gram.moments_cn(x), stats, alpha, eps)
+
+
+def adain_apply_cn(
+    x: torch.Tensor, mu_c: torch.Tensor, var_c: torch.Tensor, stats: AdainStats,
+    alpha: torch.Tensor | float = 1.0, eps: float = DEFAULT_EPS,
+) -> torch.Tensor:
+    """``adain_from_stats_cn`` with the content's moments given
+    (``mu_c``, population ``var_c``, ``[B, C]`` each): the height-sharded
+    cascade (``parallel.mesh``) combines them over its shards."""
     f32 = x.float()
-    mu_c, var_c = gram.moments_cn(x)
     out = (stats.std.float()[:, None] * (f32 - mu_c[..., None]) * torch.rsqrt(var_c + eps)[..., None]
            + stats.mean.float()[:, None])
     alpha = scalar_on(alpha, x.device)

@@ -199,7 +199,14 @@ def conv2d_reflect_nchw(
     kh, kw = w.shape[2], w.shape[3]
     if kh != kw:
         raise ValueError(f"square kernels only, got {kh}×{kw}")
-    x = pad_reflect_nchw(x, (kh - 1) // 2)
+    return conv2d_valid_nchw(pad_reflect_nchw(x, (kh - 1) // 2), w, b)
+
+
+def conv2d_valid_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """VALID conv + bias of an already padded ``x``: what
+    ``conv2d_reflect_nchw`` runs after its pad, on the same routes.
+    ``parallel.mesh`` pads a height shard with its neighbours' rows and
+    calls this."""
     w, b = w.to(x.dtype), b.to(x.dtype)
     if x.device.type != "cuda":
         if x.dtype == torch.bfloat16:

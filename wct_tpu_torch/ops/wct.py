@@ -54,7 +54,6 @@ Method = Literal[
 _AUTO_EIGH_MAX_C = 64
 
 # Where each part that is not ported yet is carried in ROADMAP.md.
-ITEM_MULTI_GPU = "ROADMAP.md queue 1 item 10 (multi-GPU)"
 ITEM_VARIANTS = "ROADMAP.md queue 1 item 11 (opt-in variants)"
 ITEM_ORBAX = "ROADMAP.md queue 1 item 12 (orbax checkpoints)"
 
@@ -225,14 +224,46 @@ def whitening_kernel_cn(
     """
     _check_trunc_modes(soft_trunc, trunc_topk, rel_trunc, groups)
     cov, mean = _grouped_gram_cn(x, groups) if groups != 1 else _gram_cn(x)
+    return _kernel_from_cov(
+        cov, mean, eps=eps, trunc=trunc, method=method, groups=groups,
+        soft_trunc=soft_trunc, ns_iters=ns_iters, trunc_topk=trunc_topk,
+        rel_trunc=rel_trunc, power=power,
+    )
+
+
+def whitening_kernel_from_cov(
+    cov: torch.Tensor, mean: torch.Tensor, *, eps: float = DEFAULT_EPS,
+    trunc: float = DEFAULT_TRUNC, method: Method = "eigh", groups: int = 1,
+    soft_trunc: bool = False, ns_iters: int | None = None,
+    trunc_topk: int | None = None, rel_trunc: float | None = None,
+    power: float = -0.5,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``whitening_kernel_cn`` from covariances already computed:
+    ``cov [B·G, C/G, C/G]`` (N − 1 normalised, no ε) and ``mean [B·G, C/G]``,
+    as ``_gram_cn`` (G = 1) or ``_grouped_gram_cn`` gives them. The
+    height-sharded cascade (``parallel.mesh``) combines per-shard Grams
+    into these and takes the kernel from here."""
+    _check_trunc_modes(soft_trunc, trunc_topk, rel_trunc, groups)
+    return _kernel_from_cov(
+        cov, mean, eps=eps, trunc=trunc, method=method, groups=groups,
+        soft_trunc=soft_trunc, ns_iters=ns_iters, trunc_topk=trunc_topk,
+        rel_trunc=rel_trunc, power=power,
+    )
+
+
+def _kernel_from_cov(
+    cov, mean, *, eps, trunc, method, groups, soft_trunc, ns_iters, trunc_topk,
+    rel_trunc, power,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    b = cov.shape[0] // groups
     cov = cov + eps * torch.eye(cov.shape[-1], dtype=cov.dtype, device=cov.device)
     kernel = _sqrt_kernels(
         cov, power, trunc, method, soft=soft_trunc, ns_iters=ns_iters,
         topk=trunc_topk, rel=rel_trunc,
     )
     if groups != 1:
-        kernel = kernel.reshape(x.shape[0], groups, *kernel.shape[-2:])
-    return kernel, mean.reshape(x.shape[0], -1)
+        kernel = kernel.reshape(b, groups, *kernel.shape[-2:])
+    return kernel, mean.reshape(b, -1)
 
 
 def _grouped_gram_cn(x: torch.Tensor, groups: int) -> tuple[torch.Tensor, torch.Tensor]:
@@ -387,7 +418,21 @@ def _affine_cn(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The per-image WCT affine of ``x [B, C, N]``: ``(M, bias [B, C])``, f32,
     with M dense ``[B, C, C]`` or, grouped, its blocks ``[B, G, C/G, C/G]``."""
-    w_c, mu_c = whitening_kernel_cn(x, **kw)
+    return _affine_from_kernel(*whitening_kernel_cn(x, **kw), stats, alpha)
+
+
+def wct_affine_from_cov(
+    cov: torch.Tensor, mean: torch.Tensor, stats: StyleStats, alpha, **kw
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The WCT affine ``(M, bias [B, C])`` of content whose covariances and
+    means are given (``whitening_kernel_from_cov``'s inputs and keyword
+    arguments); M as ``apply_affine_cn`` takes it."""
+    return _affine_from_kernel(*whitening_kernel_from_cov(cov, mean, **kw), stats, alpha)
+
+
+def _affine_from_kernel(
+    w_c: torch.Tensor, mu_c: torch.Tensor, stats: StyleStats, alpha
+) -> tuple[torch.Tensor, torch.Tensor]:
     k_s = stats.kernel.float()
     if w_c.dim() - 1 != k_s.dim():
         raise ValueError(
@@ -395,11 +440,11 @@ def _affine_cn(
             f"(kernel ranks {w_c.dim() - 1} vs {k_s.dim()}) — precompute the "
             "style with the same `groups`"
         )
-    alpha = scalar_on(alpha, x.device)
+    alpha = scalar_on(alpha, w_c.device)
     mu_s = stats.mean.float()
     transform = w_c @ k_s
-    eye = torch.eye(transform.shape[-1], dtype=torch.float32, device=x.device)
-    b = x.shape[0]
+    eye = torch.eye(transform.shape[-1], dtype=torch.float32, device=w_c.device)
+    b = w_c.shape[0]
     mu_c_t = reductions.vecmat(mu_c.reshape(transform.shape[:-1]), transform).reshape(b, -1)
     blended = alpha * transform + (1.0 - alpha) * eye
     bias = alpha * (mu_s - mu_c_t)
@@ -458,7 +503,12 @@ def wct_from_stats_cn(
     """WCT of content ``x [B, C, N]`` against cached style stats → ``[B, C, N]``:
     the affine of ``wct_transform_cn`` (same keyword arguments) applied
     to the feature map, block by block when grouped."""
-    blended, bias = _affine_cn(x, stats, alpha, **kw)
+    return apply_affine_cn(x, *_affine_cn(x, stats, alpha, **kw))
+
+
+def apply_affine_cn(x: torch.Tensor, blended: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """``x [B, C, N]`` through the per-image affine ``(M, bias)`` of
+    ``_affine_cn`` (M dense or in blocks) → ``[B, C, N]`` in ``x``'s type."""
     out = _apply_kernel(x.mT, blended).mT + bias[..., :, None]
     return out.to(x.dtype)
 

@@ -21,14 +21,13 @@ Train one level per call, as the reference does.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from wct_tpu_torch.models import decoder, vgg
 from wct_tpu_torch.ops.convs import to_nchw
-from wct_tpu_torch.ops.wct import ITEM_MULTI_GPU, not_ported
+from wct_tpu_torch.parallel import mesh as mesh_lib
 from wct_tpu_torch.train import checkpoint as ckpt_lib
 from wct_tpu_torch.utils.device import resolve_device, set_numerics
 
@@ -77,7 +76,8 @@ def _remat(fn):
 
 
 def reconstruction_loss(
-    dec_params: dict, enc_params: dict, batch: torch.Tensor, cfg: TrainConfig
+    dec_params: dict, enc_params: dict, batch: torch.Tensor, cfg: TrainConfig,
+    feature_power: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, dict[str, torch.Tensor]]:
     """Pixel + feature (+ TV) loss for one decoder.
 
@@ -85,12 +85,12 @@ def reconstruction_loss(
     compute dtype and divided by 255 in that dtype on its device. The
     encoder runs twice (encode, re-encode) and only ``dec_params`` should
     require gradients. The three terms are f32 whatever the compute dtype.
+    ``feature_power`` replaces this batch's mean square of the target
+    features under ``cfg.feature_norm``: a data-parallel step passes the
+    whole batch's.
     """
     target = cfg.relu_target
-    x = batch.to(cfg.dtype)
-    if batch.dtype == torch.uint8:
-        x = x / 255.0
-    x = to_nchw(x)
+    x = _images(batch, cfg)
 
     def encode(p, img):
         return vgg.encode_multi_nchw(p, img, (target,))[target]
@@ -109,7 +109,9 @@ def reconstruction_loss(
         recode = encode(enc_params, decoded)
         feature = (recode.float() - code.float()).pow(2).mean()
         if cfg.feature_norm:
-            power = code.float().pow(2).mean().detach()
+            power = feature_power
+            if power is None:
+                power = code.float().pow(2).mean().detach()
             feature = feature / (power + 1e-8)
     else:
         # No re-encode at all: at relu5_1 that is a second 10-conv
@@ -118,6 +120,21 @@ def reconstruction_loss(
     tv = total_variation(decoded.permute(0, 2, 3, 1)) if cfg.tv_weight else zero
     total = cfg.pixel_weight * pixel + cfg.feature_weight * feature + cfg.tv_weight * tv
     return total, {"loss": total, "pixel": pixel, "feature": feature, "tv": tv}
+
+
+def _images(batch: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
+    """A batch as the NCHW images the loss sees, in the compute dtype."""
+    x = batch.to(cfg.dtype)
+    if batch.dtype == torch.uint8:
+        x = x / 255.0
+    return to_nchw(x)
+
+
+@torch.no_grad()
+def _feature_power(enc_params: dict, batch: torch.Tensor, cfg: TrainConfig) -> torch.Tensor:
+    """The mean square of ``batch``'s target features (``feature_norm``'s divisor)."""
+    code = vgg.encode_multi_nchw(enc_params, _images(batch, cfg), (cfg.relu_target,))
+    return code[cfg.relu_target].float().pow(2).mean()
 
 
 def learning_rate(cfg: TrainConfig, count: int) -> float:
@@ -209,14 +226,87 @@ def train_step(
     opt.zero_grad(set_to_none=True)
     loss, metrics = reconstruction_loss(state.params, enc_params, batch, cfg)
     loss.backward()
+    _update(state, cfg)
+    return state, {k: v.detach() for k, v in metrics.items()}
+
+
+def _update(state: TrainState, cfg: TrainConfig) -> None:
+    """Clip the gradients in ``.grad``, set the learning rate, take one Adam step."""
+    opt = state.optimizer
     clip_grads([p.grad for p in opt.param_groups[0]["params"]], cfg)
     for group in opt.param_groups:
         group["lr"] = learning_rate(cfg, state.step)
     opt.step()
     state.step += 1
-    return state, {k: v.detach() for k, v in metrics.items()}
 
 
-def make_sharded_train_step(*args: Any, **kw: Any):
-    """Data-parallel training belongs to the multi-GPU item."""
-    raise not_ported("make_sharded_train_step (data-parallel training)", ITEM_MULTI_GPU)
+def make_sharded_train_step(mesh: mesh_lib.Mesh, cfg: TrainConfig, axis_name: str = "data"):
+    """Data-parallel train step over ``mesh``: ``fn(state, enc_params, batch)
+    -> (state, metrics)`` on the global batch, as ``train_step``.
+
+    The batch splits over the entries (``parallel.shard_batch``). Each
+    entry computes its shard's loss and ``torch.autograd.grad`` on its
+    stream, against the decoder on its device (the state's own tensors on
+    the first device, fresh copies on any other card). The all-reduce is
+    written out: the gradients weighted by b_s/B and summed in entry order
+    on the first device, which is the gradient of the whole batch's mean
+    loss. Then ``train_step``'s clip, learning rate and Adam update the
+    state; the metrics are the same weighted means. Under
+    ``cfg.feature_norm`` every shard divides by the whole batch's feature
+    power, so the loss is the unsharded one. On a mesh of one entry the
+    step is ``train_step`` itself.
+    """
+    mesh_lib.check_axis(mesh, axis_name)
+    if len(mesh.devices) == 1:
+        def single(state, enc_params, batch):
+            if isinstance(batch, mesh_lib.Sharded):
+                batch = mesh_lib.gather(batch)
+            return train_step(state, enc_params, batch, cfg)
+
+        return single
+    devs = mesh.devices
+
+    def step(state, enc_params, batch):
+        x = batch if isinstance(batch, mesh_lib.Sharded) else mesh_lib.shard_batch(batch, mesh)
+        total = x.shape[0]
+        weights = [s.shape[0] / total for s in x.shards]
+        leaves = state.optimizer.param_groups[0]["params"]
+        enc = [mesh_lib.replicate(mesh, enc_params, d) for d in devs]
+        decs = [state.params if d == devs[0] else
+                ckpt_lib._map_tree(lambda p, d=d: p.detach().to(d).requires_grad_(), state.params)
+                for d in devs]
+        powers = [None] * len(devs)
+        if cfg.feature_norm and cfg.feature_weight:
+            parts = mesh_lib.each(
+                mesh, lambda i, xb: _feature_power(enc[i], xb, cfg) if xb.shape[0] else None,
+                x.shards)
+            whole = sum(w * p.to(devs[0]) for w, p in zip(weights, parts) if p is not None)
+            powers = [whole.to(d) for d in devs]
+
+        def shard(i, xb, power):
+            if not xb.shape[0]:
+                return None
+            loss, metrics = reconstruction_loss(decs[i], enc[i], xb, cfg, feature_power=power)
+            grads = torch.autograd.grad(loss, ckpt_lib.tree_leaves(decs[i]))
+            return grads, {k: v.detach() for k, v in metrics.items()}
+
+        outs = mesh_lib.each(mesh, shard, x.shards, powers)
+        grads = metrics = None
+        for w, out in zip(weights, outs):
+            if out is None:
+                continue
+            g = [t.to(devs[0]) for t in out[0]]
+            torch._foreach_mul_(g, w)
+            m = {k: w * v.to(devs[0]) for k, v in out[1].items()}
+            if grads is None:
+                grads, metrics = g, m
+            else:
+                torch._foreach_add_(grads, g)
+                metrics = {k: metrics[k] + m[k] for k in metrics}
+        state.optimizer.zero_grad(set_to_none=True)
+        for p, g in zip(leaves, grads):
+            p.grad = g
+        _update(state, cfg)
+        return state, metrics
+
+    return step

@@ -15,6 +15,8 @@ measures the enqueue; every timer here waits for the work first.
 - ``trace`` — ``torch.profiler`` around a block, with CUDA activity on
   the card, written as a Chrome trace; ``device_busy_share`` reads the
   share of a trace's span in which the card ran a kernel or a copy.
+- ``shard_times`` — each mesh entry's enqueue and stream time in the
+  last data-parallel stylization (``parallel.stylize_sharded``).
 """
 
 from __future__ import annotations
@@ -218,3 +220,17 @@ def device_busy_share(trace_json: str) -> float:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     return busy / span if span > 0 else 0.0
+
+
+def shard_times(mesh) -> list[dict]:
+    """Per mesh entry of the last ``parallel.stylize_sharded`` call: the
+    host's enqueue ms and, on the card, the ms between events recorded on
+    the entry's stream around its work (waits for that work to end)."""
+    rows = []
+    for r in mesh.last_shard_times:
+        row = {"entry": r["entry"], "enqueue_ms": r["enqueue_s"] * 1e3, "device_ms": None}
+        if r["end"] is not None:
+            r["end"].synchronize()
+            row["device_ms"] = r["start"].elapsed_time(r["end"])
+        rows.append(row)
+    return rows
