@@ -6,7 +6,9 @@
 Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds every CUDA kernel of the port from ``wct_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes (and
-at awkward ones), runs the five-level relu5_1 → relu1_1 cascade at
+at awkward ones), splits the junction's time per stage and checks that
+its SASS holds HGMMA (``junction_stages``),
+runs the five-level relu5_1 → relu1_1 cascade at
 512 px on the trained ``weights/bundle.npz`` through
 ``precompute_style`` and ``stylize_microbatched`` five times: unfused
 (``CascadeConfig(method="newton_schulz_pallas")``, phase ``main``), with
@@ -16,7 +18,9 @@ compose_conv0=True``, phase ``main_bf16``, which also sends the
 cascade's own relu1_1-tier tensors through the small-conv and
 centred-Gram entry points), in bf16 with ``fuse_junction=True``
 (``main_bf16_fused``: the bf16 forms of the junction kernels), and in
-the default ``CascadeConfig()`` (f32, ``eigh``, ``main_eigh``). Then the
+the default ``CascadeConfig()`` (f32, ``eigh``, ``main_eigh``); ``main``
+also shows ``stylize_interp`` with new weights returning before the card
+is done. Then the
 other transforms: AdaIN unfused in f32 (``main_adain``) and fused in bf16
 (``main_adain_fused``), style-swap at relu5_1 (``main_swap5``), grouped
 WCT with four groups (``main_groups``) and the relative truncation
@@ -43,7 +47,8 @@ the Newton–Schulz kernel and bf16, each shard bitwise equal to
 covariances against float64 and each level against the unsharded
 cascade (``mesh_spatial``); the data-parallel train step against
 ``train_step`` (``mesh_train``); and ``--data-parallel`` through both
-CLIs (``mesh_cli``).
+CLIs, two processes of the stylize CLI writing the same bits
+(``mesh_cli``).
 
 Each phase prints one JSON line. The line before the last lists each
 kernel with its launches in the main path's run and its times; the
@@ -59,9 +64,11 @@ import dataclasses
 import difflib
 import io
 import json
+import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from collections import Counter
 from pathlib import Path
@@ -88,6 +95,7 @@ from wct_tpu_torch.parallel import mesh as mesh_lib
 from wct_tpu_torch.train import checkpoint, layerwise, trainer
 from wct_tpu_torch.train import data as tdata
 from wct_tpu_torch.utils import images
+from wct_tpu_torch.tools import junction_stages
 from wct_tpu_torch.tools.profile_sqrtm import sqrt_float64
 from wct_tpu_torch.utils.device import card_name, cuda_ms
 from wct_tpu_torch.utils.profiling import StageTimer, device_busy_share, shard_times, trace
@@ -205,8 +213,16 @@ def phase_device():
 
 
 def phase_build():
+    """Every kernel, and the junction with its stage stamps (phase
+    junction_stages), one nvcc per source, all started together."""
     t0 = time.perf_counter()
+    stamped = {}
+    other = threading.Thread(target=lambda: stamped.update(
+        _build.build_all(["junction"], junction_stages.DEFINES)))
+    other.start()
     libs = _build.build_all()
+    other.join()
+    check(set(stamped) == {"junction"}, "the stamped junction build failed")
     secs = time.perf_counter() - t0
     ptxas = {
         name: [ln.strip() for ln in lib.with_name(lib.name + ".log").read_text().splitlines()
@@ -413,15 +429,39 @@ def phase_main(params, content, style, cfg):
     ms_style = cuda_ms(lambda: cascade.precompute_style(params["encoder"], style, cfg), runs)
 
     stages = unfused_stages(params, batch, cache, cfg, runs)
+    interp = interp_enqueue(params, batch, [cache, cascade.precompute_style(
+        params["encoder"], np.ascontiguousarray(style[::-1]), cfg)], cfg)
+    check(interp["enqueue_ms"] < 0.5 * interp["call_ms"],
+          f"stylize_interp with new weights waited for the card: {interp}")
     emit({"phase": "main", "config": "CascadeConfig(method='newton_schulz_pallas')",
           "size": SIZE, "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA,
           "launches": counts, "first_run_wall_s": wall,
           "alpha0_vs_alpha1_mean_abs": a_diff, "batch1_vs_batch6_bitwise_equal": True,
           "vs_plain_q99": q99, "vs_plain_max": dmax, "ms_per_frame_b4": ms_frame,
           "ms_per_frame_b4_plain_ns": ms_frame_plain, "precompute_style_ms": ms_style,
-          "stages_b4_ms": stages,
+          "stages_b4_ms": stages, "interp_new_weights": interp,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
     return launches, out
+
+
+def interp_enqueue(params, batch, caches, cfg) -> dict:
+    """Does ``stylize_interp`` with new weights return before the card is
+    done? A ``stylize`` is queued first, then the blend of two styles with
+    weights it has not seen; a copy of the weights from pageable host
+    memory would wait for the queued call, as α once did (PERF.md). The
+    host's return against the end of both, best of three."""
+    calls = []
+    for i in range(3):
+        weights = [0.3 + 0.1 * i, 0.7 - 0.1 * i]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cascade.stylize(params, batch, caches[0], ALPHA, cfg)
+        cascade.stylize_interp(params, batch, caches, weights, ALPHA, cfg)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        calls.append((t1 - t0, time.perf_counter() - t0))
+    enqueue, call = min(calls)
+    return {"enqueue_ms": enqueue * 1e3, "call_ms": call * 1e3}
 
 
 # Kernel against plain: f32-class sums of up to 576 terms taken in another
@@ -670,6 +710,50 @@ def phase_junction_kernels(params, content, cache, cfg, name, dtypes=(torch.floa
 
     return {k: line(k) for n in BY_DTYPE for k in (n, f"{n}_bf16")
             if any(r["kernel"] == k and r["main_path"] for r in rows)}
+
+
+def sass_counts(lib: Path, mnemonic: str) -> dict:
+    """Per kernel function of a built library, how many SASS instructions
+    start with ``mnemonic`` (``cuobjdump -sass`` from the toolkit)."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    out = {}
+    for block in re.split(r"\n\s*Function : ", sass)[1:]:
+        out[block.split("\n", 1)[0].strip()] = len(re.findall(rf"\b{mnemonic}\b", block))
+    return out
+
+
+def phase_junction_stages(params, content, cache, cfg):
+    """Where a junction tile's time goes, per stage, in both forms, on the
+    main path's relu4_1 decoder state ``[4, 64, 256, 256]`` (trained
+    weights), from the build with stage stamps
+    (``tools/junction_stages.py``): median µs per tile of the d-tile load,
+    conv m, rgb, e1, conv1_2 + pool, the halo fix and the weight waits.
+    Beside each: ms per launch of the normal build, the shared-memory
+    plan, and the distance from a float64 evaluation. Fails unless both
+    forms' SASS holds HGMMA."""
+    _, ds, _ = main_path_inputs(params, content, cache, cfg)
+    d, tw = ds["relu4_1"]
+    weights = [*tw, *head_weights(params)]
+    forms = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = d.to(dtype).contiguous()
+        split = junction_stages.stage_split(x, weights)
+
+        def launch():
+            return junction._junction_launch("junction", x, *weights, True, False)
+
+        split["ms"] = cuda_ms(launch, 10)
+        split["vs_float64"] = junction_stages.vs_float64(launch(), x, weights, True, False)
+        smem, blocks = junction.kernel_plan("junction", dtype)
+        split["plan"] = {"smem_bytes": smem, "blocks_per_sm": blocks}
+        forms["f32" if dtype == torch.float32 else "bf16"] = split
+    hgmma = sass_counts(_build.library_path("junction"), "HGMMA")
+    emit({"phase": "junction_stages", "card": card_name(), "level": "relu4_1",
+          "shape": list(d.shape), "forms": forms, "sass_hgmma_per_function": hgmma})
+    check(len(hgmma) == 2 and all(n > 0 for n in hgmma.values()),
+          f"the junction's SASS lacks HGMMA in a form: {hgmma}")
 
 
 def fused_stages(params, batch, cache, cfg) -> dict:
@@ -2725,11 +2809,11 @@ def phase_mesh_train(params):
 
 def phase_mesh_cli():
     """``--data-parallel`` through both CLIs, as users run them: the stylize
-    CLI with and without the flag (each its own process, so each times its
-    conv shapes afresh: their largest difference printed, held to the
-    fused-route bound), the same two runs in
-    this process (one conv table: the same files, on one card a mesh of
-    one), and the train CLI for four steps."""
+    CLI with and without the flag, each its own process, and the plain run
+    again in a third; the same two runs in this process; and the train CLI
+    for four steps. Every process takes its conv choices from the one
+    choice file (``ops/convs.py``), so two processes of the plain run write
+    the same bits, and on one card (a mesh of one) so do all four runs."""
     from wct_tpu_torch.cli import stylize as stylize_cli
 
     work = ROOT / "build" / "chip_smoke" / "mesh_cli"
@@ -2750,7 +2834,8 @@ def phase_mesh_cli():
                 "--out-path", str(work / out), "--batch-size", str(2 * n_dev),
                 "--alpha", str(ALPHA), "--device", DEV, *extra]
 
-    for name, extra in (("data_parallel", ["--data-parallel"]), ("plain", [])):
+    for name, extra in (("data_parallel", ["--data-parallel"]), ("plain", []),
+                        ("plain_again", [])):
         t0 = time.perf_counter()
         proc = subprocess.run([sys.executable, "-m", "wct_tpu_torch.cli.stylize", *argv(name, extra)],
                               cwd=ROOT, capture_output=True, text=True, timeout=600)
@@ -2758,6 +2843,8 @@ def phase_mesh_cli():
         outs[name] = images.get_files(work / name)
         runs.append({"cli": "stylize", "args": extra, "seconds": time.perf_counter() - t0,
                      "cli_says": proc.stdout.strip().splitlines()[-1]})
+        if name == "plain_again":
+            continue
         with contextlib.redirect_stdout(io.StringIO()):
             stylize_cli.main(argv(f"{name}_in_process", extra))
         outs[f"{name}_in_process"] = images.get_files(work / f"{name}_in_process")
@@ -2769,10 +2856,16 @@ def phase_mesh_cli():
         return max(float(np.abs(images.get_img(x) - images.get_img(y)).max())
                    for x, y in zip(outs[a], outs[b]))
 
-    same = all(Path(x).read_bytes() == Path(y).read_bytes()
-               for x, y in zip(outs["plain_in_process"], outs["data_parallel_in_process"]))
+    def same_files(a, b):
+        return all(Path(x).read_bytes() == Path(y).read_bytes() for x, y in zip(outs[a], outs[b]))
+
+    same = same_files("plain_in_process", "data_parallel_in_process")
     check(same or n_dev > 1, "stylize CLI --data-parallel on one card, in one process, wrote other files")
+    two_processes = same_files("plain", "plain_again")
+    check(two_processes, "two processes of the stylize CLI wrote other files")
     across = max_diff("plain", "data_parallel")
+    check(across == 0.0 or n_dev > 1,
+          f"stylize CLI processes with and without --data-parallel on one card differ by {across}")
     check(across <= FUSED_MAX_LIMIT, f"stylize CLI with and without --data-parallel differ by {across}")
     cmd = [sys.executable, "-m", "wct_tpu_torch.cli.train", "--synthetic", "--synthetic-pool", "16",
            "--encoder-weights", "weights/bundle.npz", "--relu-target", "relu3_1",
@@ -2787,7 +2880,7 @@ def phase_mesh_cli():
     runs.append({"cli": "train", "args": ["--data-parallel"], "seconds": time.perf_counter() - t0,
                  "cli_says": proc.stdout.strip().splitlines()[-2:]})
     emit({"phase": "mesh_cli", "card": card_name(), "cards": n_dev, "in_process_same_files": same,
-          "across_processes_max_abs": across,
+          "two_processes_same_files": two_processes, "across_processes_max_abs": across,
           "subprocess_vs_in_process_max_abs": max_diff("plain", "plain_in_process"), "runs": runs})
 
 
@@ -2805,6 +2898,7 @@ def main() -> int:
     lines = {"ns_sqrtm": phase_kernel(params, content, style, cfg, name)}
     cache = cascade.precompute_style(params["encoder"], style, cfg)
     lines.update(phase_junction_kernels(params, content, cache, cfg, name))
+    phase_junction_stages(params, content, cache, cfg)
     _, out_unfused = phase_main(params, content, style, cfg)
     counts = phase_main_fused(params, content, style, cfg_fused, out_unfused, cache, cfg)
     cfg_bf16 = cascade.CascadeConfig(**THROUGHPUT)

@@ -387,14 +387,36 @@ def test_decoder_tail_bf16_kernel_matches_plain(card, b, h, w, clip):
 
 @pytest.mark.parametrize("kernel", ["encoder_head", "junction"])
 def test_junction_kernels_shared_memory_plan(card, kernel):
-    """The bf16 forms' shared memory as their sources plan it, and what the
-    card makes of it: the bf16 head fits two blocks per SM, the bf16
-    junction (like both f32 forms) one."""
+    """The forms' shared memory as their sources plan it, and what the card
+    makes of it: the bf16 head fits two blocks per SM; the junction on
+    wgmma (a 1 KB-aligned ring of weight slots, f32 3 and bf16 6, before
+    its maps) and the f32 head one."""
     plans = {dt: junction.kernel_plan(kernel, dt) for dt in (torch.float32, torch.bfloat16)}
     if kernel == "junction":
-        assert plans == {torch.float32: (215_936, 1), torch.bfloat16: (144_576, 1)}
+        assert plans == {torch.float32: (216_996, 1), torch.bfloat16: (194_824, 1)}
     else:
         assert plans == {torch.float32: (136_896, 1), torch.bfloat16: (76_032, 2)}
+
+
+# The junction on wgmma (csrc/junction.cu) against a float64 evaluation of
+# its chain, where plain's own error does not count: f32 (3×TF32, a partial
+# per chunk) within 1e-5 of the map's max (it measured 7e-7 at the main
+# path's shape, PERF.md), bf16 under the chain bars of _check_chain.
+@pytest.mark.parametrize("deep", [True, False], ids=["deep", "shallow"])
+@pytest.mark.parametrize("b,h,w", SHAPES[:3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+def test_junction_wgmma_against_float64(card, weights, dtype, b, h, w, deep):
+    d = (_rand(h + 3 * w, b, 64, h // 2, w // 2) * 4).to(card).to(dtype)
+    args = _on(card, weights["d1"], weights["d2"], weights["e1"], weights["e2"])
+    got = junction.junction_cuda(d, *args, deep, True)
+    ref = junction._junction_plain(d, *args, deep, True)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        ref64 = junction._junction_plain(d.double(), *[a.double() for a in args], deep, True)
+        assert _rel_max(got.double(), ref64) <= 1e-5
+        assert _rel_max(got, ref) <= JUNCTION_LIMIT
+    else:
+        _check_chain(got, ref, junction._junction_plain(d, *args, deep, True, acc=torch.float64))
 
 
 def test_bf16_fused_cascade_on_card(card):

@@ -327,9 +327,8 @@ def test_every_reference_option_exists_with_its_default():
     """Every option of the reference's stream parser, with its default, but
     ``--checkpoints`` / ``--vgg-path``, which read converted checkpoints
     (ROADMAP.md queue 1 item 11) and which no CLI of the port has yet.
-    ``--method`` and ``--dtype`` default to None so that an explicit flag
-    wins over ``--preset``; with neither given they resolve to the
-    reference's defaults."""
+    ``--method`` and ``--dtype`` are also read back through
+    ``config_from_args``, as the configuration resolves them."""
     argv = ["--style-path", "s.png"]
     ref, port = _options(jstream_cli.parse_args, argv), _options(stream_cli.parse_args, argv)
     assert set(ref) - set(port) == {"checkpoints", "vgg_path"}

@@ -301,9 +301,11 @@ def _args(*extra):
         (("--preset", "fidelity"), ("float32", "eigh", False)),
         (("--preset", "balanced"), ("float32", "auto", False)),
         (("--preset", "throughput"), ("bfloat16", "newton_schulz_fast", True)),
-        (("--preset", "throughput", "--dtype", "float32"), ("float32", "newton_schulz_fast", True)),
+        # The reference's precedence: the preset overwrites --dtype and
+        # --method; an explicit --no-compose-conv0 still wins.
+        (("--preset", "throughput", "--dtype", "float32"), ("bfloat16", "newton_schulz_fast", True)),
         (("--preset", "throughput", "--method", "eigh", "--no-compose-conv0"),
-         ("bfloat16", "eigh", False)),
+         ("bfloat16", "newton_schulz_fast", False)),
         (("--dtype", "bfloat16", "--compose-conv0", "--conv-precision", "high"),
          ("bfloat16", "eigh", True)),
     ],

@@ -6,9 +6,10 @@ item 11), plus ``--device``. ``--fold`` and ``--ring-conv`` are
 accepted and raise ``NotImplementedError`` naming item 11, as their
 ``CascadeConfig`` fields do. ``--preset`` keeps the JAX package's table
 except for ``pack2_junction``, a rewrite for the TPU's 128 lanes that
-the throughput preset sets there and that is not ported; and here an
-explicit ``--dtype``, ``--method`` or ``--[no-]compose-conv0`` wins
-over the preset.
+the throughput preset sets there and that is not ported, and its
+precedence (``wct_tpu/cli/common.py:203-220``): a preset overwrites
+``--dtype`` and ``--method``, and an explicit ``--[no-]compose-conv0``
+still wins over it.
 """
 
 from __future__ import annotations
@@ -46,8 +47,8 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
             "eigh", "newton_schulz", "newton_schulz_fast",
             "newton_schulz_pallas", "auto",
         ],
-        default=None,
-        help="matrix-sqrt path for WCT (default eigh): eigh, Newton-Schulz "
+        default="eigh",
+        help="matrix-sqrt path for WCT: eigh, Newton-Schulz "
         "in plain PyTorch, newton_schulz_fast (the same with the cheapest "
         "product that still reaches rel err 5e-5, the throughput choice), "
         "Newton-Schulz through the CUDA kernel (newton_schulz_pallas, the "
@@ -57,8 +58,8 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument(
         "--dtype",
         choices=["float32", "bfloat16"],
-        default=None,
-        help="conv compute dtype (default float32; bfloat16 = throughput mode)",
+        default="float32",
+        help="conv compute dtype (bfloat16 = throughput mode)",
     )
     p.add_argument(
         "--conv-precision",
@@ -113,7 +114,8 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
         choices=sorted(PRESETS),
         default=None,
         help="quality/speed preset setting --dtype, --method and "
-        "--compose-conv0 (an explicit flag wins over the preset): "
+        "--compose-conv0 (it overwrites --dtype and --method; an explicit "
+        "--[no-]compose-conv0 wins over it): "
         "fidelity = f32 + eigh (reference-exact truncation), balanced = "
         "f32 convs + auto solver, throughput = bf16 + fast Newton-Schulz "
         "+ composed conv0",
@@ -175,7 +177,9 @@ PRESETS = {
 
 
 def config_from_args(args: argparse.Namespace) -> cascade.CascadeConfig:
-    dtype, method, compose0 = PRESETS[args.preset or "fidelity"]
+    dtype, method, compose0 = args.dtype, args.method, False
+    if args.preset:
+        dtype, method, compose0 = PRESETS[args.preset]
     return cascade.CascadeConfig(
         relu_targets=tuple(args.relu_targets),
         transform="adain" if args.adain else "wct",
@@ -184,8 +188,8 @@ def config_from_args(args: argparse.Namespace) -> cascade.CascadeConfig:
         ss_patch_size=args.ss_patch_size,
         ss_stride=args.ss_stride,
         passes=args.passes,
-        method=method if args.method is None else args.method,
-        compute_dtype=dtype if args.dtype is None else args.dtype,
+        method=method,
+        compute_dtype=dtype,
         conv_precision=args.conv_precision,
         wct_groups=args.wct_groups,
         soft_trunc=args.soft_trunc,

@@ -1,5 +1,5 @@
 // The fused cascade junction: decoder tail -> encoder head, one launch, in f32
-// or bf16 operands.
+// or bf16 operands, its 64->64 convs on Hopper's wgmma.
 //
 // Replaces the TPU kernel wct_tpu/ops/junction_pallas.py::junction
 // (_junction_kernel), which computes in the operand type of its input. On
@@ -13,8 +13,7 @@
 //   shallow:  out = e1                                        [64, H, W]
 //
 // every conv reflect-padding its own input (conv_tiles.cuh says how the tile
-// borders keep that exact). No intermediate touches device memory: the
-// unfused chain writes and reads five full-resolution 64-channel maps. Under
+// borders keep that exact). No intermediate touches device memory. Under
 // bf16 every conv sums exact products in f32, adds its f32 bias, applies the
 // ReLU and rounds once to bf16, and m, rgb and e1 are bf16 (rgb held as f32
 // values that are bf16 ones); the weights come rounded to bf16 from the host.
@@ -23,55 +22,70 @@
 // image, 40.5 GFLOP at 512 px; at batch 4, 162 GFLOP. f32: the two 64->64
 // convs (96 % of the FLOP) run in 3xTF32, three passes at 495 TFLOP/s, 0.98
 // ms, against 268 MB of d read and 268 MB written (0.16 ms). bf16: one pass at
-// 989 TFLOP/s, 0.164 ms, against 134 + 134 MB (0.08 ms). The 64->3 and 3->64
-// stages stay FFMA (conv_tc.cuh has the stages and the k-steps of both types).
+// 989 TFLOP/s, 0.164 ms, against 134 + 134 MB (0.08 ms).
 //
-// Each 64->64 conv is an implicit GEMM over the block's tile: M = the pixels
-// of the stage's region in raster order, N = 64 output channels (8 n-tiles),
-// K = 9 taps x 64 input channels, tap-major. Warp w owns m-tiles w, w+8, ...
-// of the region and all of N. m's A values are read from the d tile through
-// the upsample tables, so u is never stored: f32 per element from the planar
-// d tile, bf16 by ldmatrix from a channel-minor copy of it (one row address
-// per lane, taken through the tables). The weights stream through the ring of
-// conv_tc.cuh: m's conv, then wd2 and we1 (one 16 KB slot), then conv1_2's.
+// Design. A block of two warpgroups owns a 16x16 output tile and computes
+// each stage on the region the next one needs:
 //
-// Shared memory (e1 lives where m was: m is dead once rgb exists):
+//   u  [24 x 24]  the upsampled d tile, never stored (read through ly, lx)
+//   m  [22 x 22]  decoder conv 64->64 + relu          (halo 3)
+//   rgb [20 x 20] decoder conv 64->3 (+clip), f32      (halo 2)
+//   e1 [18 x 18]  conv0∘conv1_1 + relu, over m         (halo 1)
+//   out [16 x 16] conv1_2 + relu + 2x2 max pool, or e1's inner 16 x 16
+//
+// Each 64->64 conv is an implicit GEMM over the tile: M = the stage's
+// pixels, N = 64 output channels, K = 9 taps x 64 input channels,
+// tap-major, on wgmma.m64n64 with A in registers and B in shared memory
+// (conv_wgmma.cuh):
+//
+//   m      484 pixels in 8 row blocks of 64 (the last one part padding);
+//          warpgroup g takes blocks g, g+2, g+4, g+6, and warp w of block i
+//          the m-tile 8 i + w, its A rows read through the upsample tables
+//          (a chunk ahead): f32 per element from the planar d tile and split
+//          into hi and lo, bf16 by ldmatrix from a channel-minor copy.
+//   conv1_2  256 pixels in 4 row blocks; warp w's slices are tile rows 2w and
+//          2w + 1, so the pool's vertical max is in its registers.
+//
+// B arrives in 16 KB slots by bulk copy on mbarriers (conv_wgmma.cuh's ring;
+// f32 3 slots, bf16 6): m's conv (f32 18 chunks of half a tap, hi then lo;
+// bf16 9 taps), then the 64->3 and 3->64 stages' weights in one slot, then
+// conv1_2's. The two warpgroups run their wgmma's independently; the block
+// meets at a barrier only between stages (the halo fixes), never per chunk.
+// Within a chunk a warpgroup's groups of wgmma's run back to back while the
+// partial before is folded and the next A is read (conv_wgmma.cuh); a
+// partial covers 32 input channels (f32 4 k-steps, bf16 2).
+//
+// The 64->3 and 3->64 stages: f32 FFMA (stage_rgb below,
+// conv_tc.cuh::stage_e1); bf16 on mma.sync.m16n8k16 (stage_rgb_mma,
+// stage_e1_mma below), whose B fragments fit the same slot.
+//
+// Shared memory, from a 1 KB-aligned base (the swizzle atoms must be):
 //
 //                                                 f32                bf16
+//   ring  weight slots                            3 x 16,384         6 x 16,384
 //   bufM  m [22 x 22], later e1 [18 x 18]         123,904 (planar)   69,696 (x 144 B)
 //         (bf16: first the d tile as loaded, [64][12][12], 18,432)
-//   dt    the d tile [12 x 12]                    37,888 (planes     20,736 (x 144 B)
-//         (later the 64->3 stage's partials)       padded to 148)
+//   dt    the d tile [12 x 12]                    37,888             20,736
+//         (f32: later the 64->3 stage's partials)
 //   rgb   [3][20][20] f32                          4,800              4,800
-//   ring  3 x 16 KB                               49,152             49,152
 //   reflect+upsample index tables                    192                192
-//                                                215,936            144,576
+//   barriers and release counts                       36                 72
+//   alignment slack                                1,024              1,024
+//                                                216,996            194,824
 //
-// Accuracy: the tensor cores truncate their sums, so an accumulator that
-// took all of a conv's mma's drifts toward zero, and the 64->3 and conv0
-// stages (O(255) weights) amplify it. f32: 216 mma's (72 k-steps x 3 passes)
-// reached 8e-5 of the output's max against plain; with a fresh partial per
-// k-step the kernel stays within 1.7e-5 of a float64 evaluation where cuDNN's
-// f32 chain is up to 4.5e-5 off. bf16 keeps the partials too (conv_tc.cuh
-// says why).
+// One block of 256 threads per SM. Registers (ptxas: f32 255, bf16 about
+// 250, no spills): 4 row blocks x 32 f32 accumulators per thread in m's
+// conv, two partials of 32, and two groups' A fragments.
 //
-// Blocks per SM: one, for both types. Under bf16 the shared memory would
-// allow more than one block only below 115,712 bytes (two blocks and their
-// reserved 1 KB each in the SM's 228 KB), and a block of 8 warps that each
-// hold 4 m-tiles x 8 n-tiles of f32 accumulators (128 registers) plus their
-// fragments needs more than the 128 registers a thread that two blocks
-// allow. So the bf16 form keeps the f32 form's tiling and one block per SM,
-// and the 71 KB it frees stay unused; its gain is the single pass and the
-// halved A and B traffic (1.47 ms per launch at [4, 64, 256, 256] against
-// f32's 4.7; PERF.md).
-//
-// The summation order of every output is fixed, there are no atomics, and
-// nothing depends on the batch: an image gives the same bits alone and in any
-// batch.
+// The summation order of every output is fixed (taps, then channels, a
+// partial per 32 input channels summed inside the tensor core and folded
+// with a rounded f32 add; the bf16 64->3 stage a partial per k-step), there
+// are no atomics on data, and nothing depends on the batch: an image gives
+// the same bits alone and in any batch.
 //
 // Grid (W/16, H/16, B), 256 threads, one block per SM.
 
-#include "conv_tc.cuh"
+#include "conv_wgmma.cuh"
 
 namespace wct {
 
@@ -81,8 +95,7 @@ constexpr int kDS = kUS / 2;  // d tile edge
 constexpr int kDPix = kDS * kDS;
 constexpr int kDPlane = kDPix + 4;  // f32: 148, so that A loads of 4 channels hit 4 bank groups
 constexpr int kMPix = kMS * kMS;    // 484 pixels of m: 31 m-tiles of 16
-constexpr int kMTiles = (kMPix + 15) / 16;
-constexpr int kJSlot = 16384;       // the ring's slot: a chunk, or wd2 and we1 (16,128 B)
+constexpr int kJSlot = 16384;       // a weight slot: a chunk, or wd2 and we1 (16,128 B)
 constexpr int kSmallFloats = kCh * 9 * 4 + 3 * kTapStride;
 
 template <typename T>
@@ -95,95 +108,105 @@ __host__ __device__ constexpr int d_bytes() {
   return is_f32<T>() ? kCh * kDPlane * 4 : kDPix * kPitch * 2;
 }
 
-template <typename T>
-__host__ __device__ constexpr int junction_smem() {
-  return m_bytes<T>() + d_bytes<T>() + kRgbFloats * 4 + kSlots * kJSlot + 2 * kUS * 4;
-}
-
 static_assert(map_bytes<float>(kE1S * kE1S) <= m_bytes<float>(), "e1 lives where m was");
 static_assert(map_bytes<bf16>(kE1S * kE1S) <= m_bytes<bf16>(), "e1 lives where m was");
 static_assert(kCh * kDPix * 2 <= m_bytes<bf16>(), "the loaded d tile fits where m will be");
 static_assert(kSmallFloats * 4 <= kJSlot, "wd2 and we1 share one slot");
-static_assert(Tc<float>::kChunkBytes <= kJSlot && Tc<bf16>::kChunkBytes <= kJSlot, "chunks fit a slot");
-static_assert(kRgbFloats * 4 <= d_bytes<bf16>(), "the 64->3 partial sums fit the d tile");
-static_assert(junction_smem<float>() <= 232448, "one block's shared memory on sm_90");
+static_assert(kRgbFloats * 4 <= d_bytes<float>(), "the 64->3 partial sums fit the d tile");
 
-// m [22 x 22] (halo fixed) -> rgb [3][20][20] f32 = conv 64->3 (+clip), rounded
-// to T. ws holds the weights [64][9][4] (co padded to 4); scratch takes 1200
-// floats. 100 2x2 pixel tiles x 2 halves of the input channels = 200 threads;
-// the halves are added in a fixed order.
-template <typename T>
-__device__ __forceinline__ void stage_rgb(const T* m, float* rgb, const float* ws, float* scratch,
-                                          const float* __restrict__ bd2, int clip) {
+// Stage stamps: built with -DWCT_STAGE_TIMES, thread 0 writes kStamps 64-bit
+// values per tile (the tile's index: bx + W/16 (by + H/16 b)) into
+// g_stage_stamps (junction_stamps() copies them out): %globaltimer (ns) at
+// the tile's start, after the d tile, after the m conv (before its halo
+// fix), after the halo fix, after rgb, after e1 and at its end; then clock64
+// at its start and at its end, and the clock64 cycles thread 0 spent waiting
+// for weight chunks; then %globaltimer again once the FFMA stages' weights
+// are in and once rgb is computed (before its halo fix); then the clock64
+// cycles thread 0 spent waiting for conv1_2's weight chunks; then those it
+// spent handing weight slots back (the ring's releases). The normal build
+// has none of this.
+
+constexpr int kStamps = 14;
+constexpr int kStampBlocks = 8192;  // blocks past this many are not stamped
+
+#ifdef WCT_STAGE_TIMES
+__device__ unsigned long long g_stage_stamps[kStampBlocks * kStamps];
+
+__device__ __forceinline__ unsigned long long global_ns() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__device__ __forceinline__ unsigned long long* tile_stamps(int tile) {
+  return threadIdx.x == 0 && tile < kStampBlocks ? g_stage_stamps + tile * kStamps : nullptr;
+}
+
+#define JSTAMP_DECL \
+  unsigned long long* stamps_ = nullptr; \
+  long long waited_ = 0, released_ = 0
+#define JSTAMP_TILE(tile) do { stamps_ = tile_stamps(tile); waited_ = released_ = 0; } while (0)
+#define JSTAMP(i) do { if (stamps_) stamps_[i] = global_ns(); } while (0)
+#define JSTAMP_CLOCK(i) do { if (stamps_) stamps_[i] = clock64(); } while (0)
+#define JWAIT_BEGIN long long w0_ = stamps_ ? clock64() : 0
+#define JWAIT_END do { if (stamps_) waited_ += clock64() - w0_; } while (0)
+#define JSTAMP_WAITED(i) do { if (stamps_) stamps_[i] = waited_; } while (0)
+#define JRELEASE(stmt) do { long long r0_ = stamps_ ? clock64() : 0; stmt; \
+  if (stamps_) released_ += clock64() - r0_; } while (0)
+#define JSTAMP_RELEASED(i) do { if (stamps_) stamps_[i] = released_; } while (0)
+#else
+#define JSTAMP_DECL
+#define JSTAMP_TILE(tile)
+#define JSTAMP(i)
+#define JSTAMP_CLOCK(i)
+#define JWAIT_BEGIN
+#define JWAIT_END
+#define JSTAMP_WAITED(i)
+#define JRELEASE(stmt) stmt
+#define JSTAMP_RELEASED(i)
+#endif
+
+// ---------------------------------------------------------------- stages
+
+// f32: m [22 x 22] (halo fixed, planar) -> rgb [3][20][20] = conv 64->3
+// (+clip). ws holds the weights [64][9][4] (co padded to 4); scratch takes
+// 1200 floats. 100 2x2 pixel tiles x 2 halves of the input channels = 200
+// threads; the halves are added in a fixed order.
+__device__ __forceinline__ void stage_rgb(const float* m, float* rgb, const float* ws,
+                                          float* scratch, const float* __restrict__ bd2,
+                                          int clip) {
   constexpr int kTiles = kRgbS / 2;  // 10
   const int tid = threadIdx.x;
   const int half = tid / (kTiles * kTiles), pt = tid % (kTiles * kTiles);
   const int ty = pt / kTiles, tx = pt % kTiles;
   float acc[2][2][3] = {};
   if (half < 2) {
-    if constexpr (is_f32<T>()) {
-      const float* ip = m + 2 * ty * kMS + 2 * tx;
-      for (int ci = half * (kCh / 2); ci < (half + 1) * (kCh / 2); ++ci) {
+    const float* ip = m + 2 * ty * kMS + 2 * tx;
+    for (int ci = half * (kCh / 2); ci < (half + 1) * (kCh / 2); ++ci) {
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy) {
-          float4 wv[3];
+      for (int dy = 0; dy < 3; ++dy) {
+        float4 wv[3];
 #pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-            wv[dx] = *reinterpret_cast<const float4*>(ws + (ci * 9 + dy * 3 + dx) * 4);
-          float x[2][4];
+        for (int dx = 0; dx < 3; ++dx)
+          wv[dx] = *reinterpret_cast<const float4*>(ws + (ci * 9 + dy * 3 + dx) * 4);
+        float x[2][4];
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            const float* rp = ip + ci * kMS * kMS + (dy + r) * kMS;
-            const float2 p = *reinterpret_cast<const float2*>(rp);
-            const float2 q = *reinterpret_cast<const float2*>(rp + 2);
-            x[r][0] = p.x; x[r][1] = p.y; x[r][2] = q.x; x[r][3] = q.y;
-          }
-#pragma unroll
-          for (int dx = 0; dx < 3; ++dx)
-#pragma unroll
-            for (int r = 0; r < 2; ++r)
-#pragma unroll
-              for (int p = 0; p < 2; ++p) {
-                acc[r][p][0] = fmaf(x[r][p + dx], wv[dx].x, acc[r][p][0]);
-                acc[r][p][1] = fmaf(x[r][p + dx], wv[dx].y, acc[r][p][1]);
-                acc[r][p][2] = fmaf(x[r][p + dx], wv[dx].z, acc[r][p][2]);
-              }
+        for (int r = 0; r < 2; ++r) {
+          const float* rp = ip + ci * kMS * kMS + (dy + r) * kMS;
+          const float2 p = *reinterpret_cast<const float2*>(rp);
+          const float2 q = *reinterpret_cast<const float2*>(rp + 2);
+          x[r][0] = p.x; x[r][1] = p.y; x[r][2] = q.x; x[r][3] = q.y;
         }
-      }
-    } else {
-      // Channel-minor m: a 16-byte load brings 8 channels of a pixel.
-      for (int cg = half * 4; cg < half * 4 + 4; ++cg) {
 #pragma unroll
-        for (int dy = 0; dy < 3; ++dy)
+        for (int dx = 0; dx < 3; ++dx)
 #pragma unroll
-          for (int r = 0; r < 2; ++r) {
-            float x[4][8];
+          for (int r = 0; r < 2; ++r)
 #pragma unroll
-            for (int c = 0; c < 4; ++c) {
-              const uint4 v = *reinterpret_cast<const uint4*>(
-                  m + ((2 * ty + dy + r) * kMS + 2 * tx + c) * kPitch + 8 * cg);
-              const uint32_t u[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-              for (int k = 0; k < 4; ++k) {
-                x[c][2 * k] = bf16_lo(u[k]);
-                x[c][2 * k + 1] = bf16_hi(u[k]);
-              }
+            for (int p = 0; p < 2; ++p) {
+              acc[r][p][0] = fmaf(x[r][p + dx], wv[dx].x, acc[r][p][0]);
+              acc[r][p][1] = fmaf(x[r][p + dx], wv[dx].y, acc[r][p][1]);
+              acc[r][p][2] = fmaf(x[r][p + dx], wv[dx].z, acc[r][p][2]);
             }
-#pragma unroll
-            for (int k = 0; k < 8; ++k)
-#pragma unroll
-              for (int dx = 0; dx < 3; ++dx) {
-                const float4 wv =
-                    *reinterpret_cast<const float4*>(ws + ((8 * cg + k) * 9 + dy * 3 + dx) * 4);
-#pragma unroll
-                for (int p = 0; p < 2; ++p) {
-                  acc[r][p][0] = fmaf(x[p + dx][k], wv.x, acc[r][p][0]);
-                  acc[r][p][1] = fmaf(x[p + dx][k], wv.y, acc[r][p][1]);
-                  acc[r][p][2] = fmaf(x[p + dx][k], wv.z, acc[r][p][2]);
-                }
-              }
-
-          }
       }
     }
     if (half == 1) {
@@ -205,7 +228,7 @@ __device__ __forceinline__ void stage_rgb(const T* m, float* rgb, const float* w
         for (int c = 0; c < 3; ++c) {
           float v = acc[r][p][c] + scratch[pt * 12 + (r * 2 + p) * 3 + c] + __ldg(bd2 + c);
           if (clip) v = fminf(fmaxf(v, 0.f), 1.f);
-          rgb[c * kRgbS * kRgbS + (2 * ty + r) * kRgbS + 2 * tx + p] = as_operand<T>(v);
+          rgb[c * kRgbS * kRgbS + (2 * ty + r) * kRgbS + 2 * tx + p] = v;
         }
   }
 }
@@ -242,6 +265,182 @@ __device__ __forceinline__ void transpose_d(const bf16* raw, bf16* dt) {
   }
 }
 
+// The index tables of a tile: ly[i] (lx[i]) is the d-tile row (column) that
+// u row (column) 16*by-4+i (16*bx-4+i) reads after the reflection at full
+// resolution.
+__device__ __forceinline__ void index_tables(int* ly, int* lx, int by, int bx, int dy0, int dx0,
+                                             int H, int W) {
+  const int tid = threadIdx.x;
+  if (tid < kUS) ly[tid] = (reflect(kT * by - 4 + tid, H) >> 1) - dy0;
+  if (tid >= 32 && tid < 32 + kUS) lx[tid - 32] = (reflect(kT * bx - 4 + tid - 32, W) >> 1) - dx0;
+}
+
+// The shallow output: e1's inner 16 x 16 pixels into out_b [64][H][W].
+template <typename T>
+__device__ __forceinline__ void store_e1(const T* e1, T* __restrict__ out_b, int by, int bx, int H,
+                                         int W) {
+  for (int i = threadIdx.x; i < kCh * kT * kT; i += kThreads) {
+    const int c = i / (kT * kT), y = (i / kT) % kT, x = i % kT;
+    const int pix = (y + 1) * kE1S + x + 1;
+    out_b[((size_t)c * H + kT * by + y) * W + kT * bx + x] =
+        is_f32<T>() ? e1[c * kE1S * kE1S + pix] : e1[pix * kPitch + c];
+  }
+}
+
+// ---------------------------------------------------------------- the kernel
+
+template <typename T>
+struct Wg {
+  static constexpr int kSlots = is_f32<T>() ? 3 : 6;
+  static constexpr int kRing = kSlots * kJSlot;
+  // k-steps per partial: 32 input channels in both forms (a bf16 partial of
+  // 64 failed the float64 bars; PERF.md).
+  static constexpr int kFold = is_f32<T>() ? 4 : 2;
+};
+
+template <typename T>
+__host__ __device__ constexpr int junction_smem() {
+  return 1024 + Wg<T>::kRing + m_bytes<T>() + d_bytes<T>() + kRgbFloats * 4 + 2 * kUS * 4 +
+         Wg<T>::kSlots * 12;
+}
+
+static_assert(junction_smem<float>() <= 232448, "one block's shared memory on sm_90");
+static_assert(junction_smem<bf16>() <= 232448, "one block's shared memory on sm_90");
+static_assert(Ring<1>::kJSlotBytes == kJSlot, "the ring's slots are the junction's");
+
+// The A fragment of k-step j of chunk c for the lane's rows of one row block:
+// f32 the 4 values at rows off[0], off[1] (d-tile or e1 pixels), channels
+// ch + t, ch + t + 4 of planes `plane` floats apart, split into hi and lo.
+__device__ __forceinline__ void a_tf32(const float* p, int plane, const int (&off)[2],
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float a = p[(e >> 1) * 4 * plane + off[e & 1]];
+    ah[e] = to_tf32(a);
+    al[e] = to_tf32(a - __uint_as_float(ah[e]));
+  }
+}
+
+// bf16, the 64->3 and 3->64 stages on mma.sync.m16n8k16 (bf16 x bf16 -> f32)
+// instead of FFMA: the weights as B fragments in the FFMA stages' slot,
+// rgb's [36 k-steps][32 lanes][2 words] (co 0..2 of the n-tile's 8, the rest
+// zero), then e1's [2 k-steps][8 n-tiles][32 lanes][2 words] (K = 27 = 3
+// channels x 9 taps, zero-padded to 32); ops/junction.py::_rgb_frags_bf16,
+// _e1_frags_bf16. Products are exact, sums f32, one rounding after bias,
+// clip or ReLU, as the FFMA stages.
+constexpr int kRgbFragWords = 36 * 32 * 2;    // 9,216 bytes
+constexpr int kE1FragWords = 2 * 8 * 32 * 2;  // 4,096 bytes
+static_assert(kRgbFragWords == kCh * 9 * 4, "rgb's fragments take the FFMA weights' bytes");
+
+// m [22 x 22] (halo fixed, channel-minor) -> rgb [3][20][20] f32 holding bf16
+// values: 400 pixels = 25 m-tiles, warp w m-tiles w, w + 8, w + 16, w + 24
+// (past the 25th, padding rows that are computed and not stored, so that
+// every warp's four m-tiles are four independent chains); 36 k-steps (tap,
+// then 16 channels) by ldmatrix, a fresh partial per k-step.
+__device__ __forceinline__ void stage_rgb_mma(const bf16* m, float* rgb, const uint32_t* wf,
+                                              const float* __restrict__ bd2, int clip) {
+  constexpr int kPix = kRgbS * kRgbS, kTiles = (kPix + 15) / 16, kNM = (kTiles + 7) / 8;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[kNM][4] = {};
+  uint32_t row[kNM];  // the lane's ldmatrix row at tap (0, 0): pixel lane % 16 of the m-tile
+#pragma unroll
+  for (int mt = 0; mt < kNM; ++mt) {
+    const int p = min((warp + 8 * mt) * 16 + (lane & 15), kPix - 1);
+    row[mt] = smem_addr(m + ((p / kRgbS) * kMS + p % kRgbS) * kPitch + 8 * (lane >> 4));
+  }
+#pragma unroll 4
+  for (int s = 0; s < 36; ++s) {
+    const int tap = s >> 2;
+    const uint32_t shift = (((tap / 3) * kMS + tap % 3) * kPitch + 16 * (s & 3)) * 2;
+    const uint2 b = *reinterpret_cast<const uint2*>(wf + (s * 32 + lane) * 2);
+#pragma unroll
+    for (int mt = 0; mt < kNM; ++mt) {
+      uint32_t a[4];
+      ldsm_x4(row[mt] + shift, a[0], a[1], a[2], a[3]);
+      float part[4] = {};
+      mma_bf16_16816(part, a, b.x, b.y);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc[mt][r] += part[r];
+    }
+  }
+  // acc[mt][2 r + e]: pixel 16 (warp + 8 mt) + g + 8 r, channel 2 t + e.
+#pragma unroll
+  for (int mt = 0; mt < kNM; ++mt) {
+    if (t > 1) break;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = (warp + 8 * mt) * 16 + g + 8 * r;
+      if (p >= kPix) continue;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int c = 2 * t + e;
+        if (c > 2) continue;
+        float v = acc[mt][2 * r + e] + __ldg(bd2 + c);
+        if (clip) v = fminf(fmaxf(v, 0.f), 1.f);
+        rgb[c * kPix + p] = as_operand<bf16>(v);
+      }
+    }
+  }
+}
+
+// rgb [3][20][20] (halo fixed) -> e1 [18 x 18] channel-minor = relu(conv0∘conv1_1):
+// 324 pixels = 21 m-tiles, warp w m-tiles w, w + 8, ...; A gathered per
+// element, k = 9 ci + tap.
+__device__ __forceinline__ void stage_e1_mma(const float* rgb, bf16* e1, const uint32_t* wf,
+                                             const float* __restrict__ be1) {
+  constexpr int kPix = kE1S * kE1S, kTiles = (kPix + 15) / 16;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  uint32_t b[2][8][2];
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt) {
+      const uint2 v = *reinterpret_cast<const uint2*>(wf + ((s * 8 + nt) * 32 + lane) * 2);
+      b[s][nt][0] = v.x;
+      b[s][nt][1] = v.y;
+    }
+  int koff[2][4];  // rgb offset of k = 16 s + 2 t + {0, 1, 8, 9}; -1 past 27
+#pragma unroll
+  for (int s = 0; s < 2; ++s)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int k = 16 * s + 2 * t + (q & 1) + 8 * (q >> 1);
+      koff[s][q] = k < 27 ? (k / 9) * kRgbS * kRgbS + ((k % 9) / 3) * kRgbS + k % 3 : -1;
+    }
+  for (int mt = warp; mt < kTiles; mt += 8) {
+    int pix[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = min(mt * 16 + g + 8 * r, kPix - 1);
+      pix[r] = (p / kE1S) * kRgbS + p % kE1S;
+    }
+    float acc[8][4] = {};
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      float v[2][4];
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) v[r][q] = koff[s][q] < 0 ? 0.f : rgb[koff[s][q] + pix[r]];
+      const uint32_t a[4] = {pack_bf16(v[0][0], v[0][1]), pack_bf16(v[1][0], v[1][1]),
+                             pack_bf16(v[0][2], v[0][3]), pack_bf16(v[1][2], v[1][3])};
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) mma_bf16_16816(acc[nt], a, b[s][nt][0], b[s][nt][1]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int p = mt * 16 + g + 8 * r;
+      if (p >= kPix) continue;
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+        const int co = 8 * nt + 2 * t;
+        store_pair(e1, kPix, p, co, fmaxf(acc[nt][2 * r] + __ldg(be1 + co), 0.f),
+                   fmaxf(acc[nt][2 * r + 1] + __ldg(be1 + co + 1), 0.f));
+      }
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
@@ -250,19 +449,24 @@ junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
                 const float* __restrict__ be1, const unsigned char* __restrict__ we2f,
                 const float* __restrict__ be2, T* __restrict__ out, int h, int w, int deep,
                 int clip) {
+  constexpr int kS = Wg<T>::kSlots;
   constexpr int kChunks = Tc<T>::kChunks, kChunkBytes = Tc<T>::kChunkBytes;
   constexpr int kPerTap = kChunks / 9;
   extern __shared__ float4 smem4[];
-  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
-  T* bufM = reinterpret_cast<T*>(base);
+  // Aligned by pointer arithmetic on the shared array itself, so that every
+  // access below stays a shared-memory one (an integer round trip would make
+  // them generic loads and stores).
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4) + (-smem_addr(smem4) & 1023u);
+  T* bufM = reinterpret_cast<T*>(base + Wg<T>::kRing);
   T* bufE = bufM;  // e1 replaces m
-  T* dt = reinterpret_cast<T*>(base + m_bytes<T>());
-  float* rgb = reinterpret_cast<float*>(base + m_bytes<T>() + d_bytes<T>());
-  unsigned char* ring = reinterpret_cast<unsigned char*>(rgb + kRgbFloats);
-  int* ly = reinterpret_cast<int*>(ring + kSlots * kJSlot);
+  T* dt = reinterpret_cast<T*>(base + Wg<T>::kRing + m_bytes<T>());
+  float* rgb = reinterpret_cast<float*>(base + Wg<T>::kRing + m_bytes<T>() + d_bytes<T>());
+  int* ly = reinterpret_cast<int*>(rgb + kRgbFloats);
   int* lx = ly + kUS;
-  const WeightStream ws{wd1f, kChunks, wd2, kCh * 9 * 4, we1, 3 * kTapStride,
-                        we2f, deep ? kChunks : 0};
+  const Ring<kS> ring{base, reinterpret_cast<uint64_t*>(lx + kUS),
+                      reinterpret_cast<int*>(reinterpret_cast<uint64_t*>(lx + kUS) + kS)};
+  const WeightStream ws{wd1f, kChunks, wd2, kCh * 9 * 4, we1,
+                        is_f32<T>() ? 3 * kTapStride : kE1FragWords, we2f, deep ? kChunks : 0};
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int bx = blockIdx.x, by = blockIdx.y, b = blockIdx.z;
@@ -270,103 +474,214 @@ junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
   // d rows 8*by-2 .. 8*by+9 and columns 8*bx-2 .. 8*bx+9 feed u rows and
   // columns 16*b-4 .. 16*b+19 after the reflection at full resolution.
   const int dy0 = (kT / 2) * by - 2, dx0 = (kT / 2) * bx - 2;
-  if (tid < kUS) ly[tid] = (reflect(kT * by - 4 + tid, H) >> 1) - dy0;
-  if (tid >= 32 && tid < 32 + kUS) lx[tid - 32] = (reflect(kT * bx - 4 + tid - 32, W) >> 1) - dx0;
+  JSTAMP_DECL;
+  JSTAMP_TILE(bx + gridDim.x * (by + gridDim.y * b));
+  JSTAMP(0);
+  JSTAMP_CLOCK(7);
+  index_tables(ly, lx, by, bx, dy0, dx0, H, W);
+  if (tid == 0) ring.init();
   load_d<T>(d + (size_t)b * kCh * h * w, dt, bufM, dy0, dx0, h, w);
-  fetch_slot<kJSlot, kChunkBytes>(0, ring, ws);
-  fetch_slot<kJSlot, kChunkBytes>(1, ring, ws);
-  if constexpr (!is_f32<T>()) cp_async_wait<2>();  // the d tile; two weight chunks may still fly
-  __syncthreads();  // the index tables (bf16: and the d tile as loaded)
-  if constexpr (!is_f32<T>()) transpose_d(bufM, dt);  // the first take_slot's barrier orders it
+  __syncthreads();  // the barriers are set up
+  if (tid == 0)
+    for (int q = 0; q < kS; ++q) ring.template issue<kChunkBytes>(q, ws);
+  cp_async_wait<0>();
+  __syncthreads();  // the d tile and the index tables
+  if constexpr (!is_f32<T>()) {
+    transpose_d(bufM, dt);
+    __syncthreads();
+  }
+  JSTAMP(1);
 
   // ---- decoder conv 64->64 + relu on the upsampled tile: m, 22x22 ----
   {
-    constexpr int kNM = (kMTiles + 7) / 8;  // 4 (warp 7: 3)
-    const int live = (kMTiles - warp + 7) / 8;
-    float acc[kNM][8][4] = {};
-    // (row << 8) | column in m of the lane's pixels: f32 rows g and g + 8 of
-    // each m-tile, bf16 its ldmatrix row (pixel lane % 16).
-    int pyx[kNM][2];
+    constexpr int kRB = 4;
+    float acc[kRB][32];
 #pragma unroll
-    for (int mt = 0; mt < kNM; ++mt)
+    for (int rb = 0; rb < kRB; ++rb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[rb][i] = 0.f;
+    // (row << 8) | column in m of the lane's pixels in row block rb (m-tile
+    // 8 rb + warp): f32 rows g and g + 8, bf16 its ldmatrix row lane % 16.
+    int pyx[kRB][2];
+#pragma unroll
+    for (int rb = 0; rb < kRB; ++rb)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
         const int in_tile = is_f32<T>() ? g + 8 * r : (lane & 15);
-        const int p = min((warp + 8 * mt) * 16 + in_tile, kMPix - 1);
-        pyx[mt][r] = (p / kMS) << 8 | p % kMS;
+        const int p = min((8 * rb + warp) * 16 + in_tile, kMPix - 1);
+        pyx[rb][r] = (p / kMS) << 8 | p % kMS;
       }
-    for (int tap = 0; tap < 9; ++tap) {
-      const int dy = tap / 3, dx = tap % 3;
-      int off[kNM][2];  // d-tile pixel of each of the lane's rows, this tap
+    const auto wait = [&](int c) {
+      JWAIT_BEGIN;
+      ring.wait(c);
+      JWAIT_END;
+    };
+    if constexpr (is_f32<T>()) {
+      for (int c = 0; c < kChunks; ++c) {
+        const int tap = c / kPerTap, part = c % kPerTap, dy = tap / 3, dx = tap % 3;
+        int off[kRB][2];  // d-tile pixel of each of the lane's rows, this tap
 #pragma unroll
-      for (int mt = 0; mt < kNM; ++mt)
+        for (int rb = 0; rb < kRB; ++rb)
 #pragma unroll
-        for (int r = 0; r < 2; ++r)
-          off[mt][r] = ly[(pyx[mt][r] >> 8) + dy] * kDS + lx[(pyx[mt][r] & 255) + dx];
-      for (int part = 0; part < kPerTap; ++part) {
-        const T* slot = reinterpret_cast<const T*>(
-            take_slot<kJSlot, kChunkBytes>(kPerTap * tap + part, ring, ws));
+          for (int r = 0; r < 2; ++r)
+            off[rb][r] = ly[(pyx[rb][r] >> 8) + dy] * kDS + lx[(pyx[rb][r] & 255) + dx];
+        wait(c);
+        chunk_rows_tf32<kRB, Wg<T>::kFold>(acc, ring.slot(c),
+                             [&](int rb, int j, uint32_t(&ah)[4], uint32_t(&al)[4]) {
+                               a_tf32(dt + (32 * part + 8 * j + t) * kDPlane, kDPlane, off[rb],
+                                      ah, al);
+                             });
+        JRELEASE(ring.template release<kChunkBytes>(c, ws));
+      }
+    } else {  // a chunk is a tap
+      const uint32_t a_base = smem_addr(dt + 8 * (lane >> 4));
+      // The lane's ldmatrix row of each row block at tap c: a d-tile pixel
+      // through the upsample tables, read a chunk ahead.
+      const auto rows_at = [&](int c, uint32_t (&row)[kRB]) {
 #pragma unroll
-        for (int j = 0; j < kStepsPerChunk; ++j) {
-          const T* step = slot + j * kChunkBytes / kStepsPerChunk / sizeof(T);
-          if constexpr (is_f32<T>()) {
-            const float* a_base = dt + (32 * part + 8 * j + t) * kDPlane;
-            mma_kstep<kNM>(acc, step, lane, live, [&](int mt, int e) {
-              return a_base[(e >> 1) * 4 * kDPlane + off[mt][e & 1]];
-            });
-          } else {
-            const uint32_t a_base = smem_addr(dt + 16 * j + 8 * (lane >> 4));
-            mma_kstep<kNM>(acc, step, lane, live, [&](int mt) {
-              return a_base + off[mt][0] * kPitch * (uint32_t)sizeof(T);
-            });
-          }
-        }
+        for (int rb = 0; rb < kRB; ++rb)
+          row[rb] = a_base + (ly[(pyx[rb][0] >> 8) + c / 3] * kDS +
+                              lx[(pyx[rb][0] & 255) + c % 3]) * kPitch * 2;
+      };
+      uint32_t row[kRB], next[kRB];
+      uint32_t a[2][kStepsPerChunk][4];
+      rows_at(0, row);
+      load_a(a[0], row[0]);
+      for (int c = 0; c < kChunks; ++c) {
+        if (c + 1 < kChunks) rows_at(c + 1, next);
+        wait(c);
+        chunk_rows<kRB, Wg<T>::kFold>(acc, a, ring.slot(c), [&](int rb) { return row[rb]; },
+                        c + 1 < kChunks ? next[0] : 0u);
+        JRELEASE(ring.template release<kChunkBytes>(c, ws));
+#pragma unroll
+        for (int rb = 0; rb < kRB; ++rb) row[rb] = next[rb];
       }
     }
-    // acc[mt][nt][2r + e]: pixel 16 (warp + 8 mt) + g + 8 r, channel 8 nt + 2 t + e.
+    // acc[rb][4 nt + 2 r + e]: pixel 16 (8 rb + warp) + g + 8 r, channel 8 nt + 2 t + e.
 #pragma unroll
-    for (int mt = 0; mt < kNM; ++mt) {
-      if (mt >= live) break;
+    for (int rb = 0; rb < kRB; ++rb)
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
-        const int p = (warp + 8 * mt) * 16 + g + 8 * r;
+        const int p = (8 * rb + warp) * 16 + g + 8 * r;
         if (p >= kMPix) continue;
 #pragma unroll
         for (int nt = 0; nt < 8; ++nt) {
           const int co = 8 * nt + 2 * t;
-          store_pair(bufM, kMPix, p, co, fmaxf(acc[mt][nt][2 * r] + __ldg(bd1 + co), 0.f),
-                     fmaxf(acc[mt][nt][2 * r + 1] + __ldg(bd1 + co + 1), 0.f));
+          store_pair(bufM, kMPix, p, co, fmaxf(acc[rb][4 * nt + 2 * r] + __ldg(bd1 + co), 0.f),
+                     fmaxf(acc[rb][4 * nt + 2 * r + 1] + __ldg(bd1 + co + 1), 0.f));
         }
       }
-    }
   }
+  JSTAMP(2);
   fix_halo(bufM, kMS, kT * by - 3, kT * bx - 3, H, W);
+  JSTAMP(3);
 
   // ---- decoder conv 64->3 (linear, optional clip): rgb, 20x20 ----
-  const float* small = reinterpret_cast<const float*>(take_slot<kJSlot, kChunkBytes>(kChunks, ring, ws));
-  stage_rgb<T>(bufM, rgb, small, reinterpret_cast<float*>(dt), bd2, clip);
+  {
+    JWAIT_BEGIN;
+    ring.wait(kChunks);
+    JWAIT_END;
+  }
+  JSTAMP_WAITED(9);
+  JSTAMP(10);
+  const float* small = reinterpret_cast<const float*>(base + (kChunks % kS) * kJSlot);
+  if constexpr (is_f32<T>())
+    stage_rgb(bufM, rgb, small, reinterpret_cast<float*>(dt), bd2, clip);
+  else
+    stage_rgb_mma(bufM, rgb, reinterpret_cast<const uint32_t*>(small), bd2, clip);
+  JSTAMP(11);
   fix_halo(rgb, 3, kRgbS, kT * by - 2, kT * bx - 2, H, W);
+  JSTAMP(4);
 
   // ---- encoder conv0∘conv1_1 + relu: e1, 18x18 (over m, which is dead) ----
-  stage_e1<T>(rgb, bufE, small + kCh * 9 * 4, be1);
+  if constexpr (is_f32<T>())
+    stage_e1<T>(rgb, bufE, small + kCh * 9 * 4, be1);
+  else
+    stage_e1_mma(rgb, bufE, reinterpret_cast<const uint32_t*>(small) + kRgbFragWords, be1);
   if (!deep) {  // the relu1_1 features of the tile are the output
     __syncthreads();
-    T* out_b = out + (size_t)b * kCh * H * W;
-    for (int i = tid; i < kCh * kT * kT; i += kThreads) {
-      const int c = i / (kT * kT), y = (i / kT) % kT, x = i % kT;
-      const int pix = (y + 1) * kE1S + x + 1;
-      out_b[((size_t)c * H + kT * by + y) * W + kT * bx + x] =
-          is_f32<T>() ? bufE[c * kE1S * kE1S + pix] : bufE[pix * kPitch + c];
-    }
-    cp_async_wait<0>();  // nothing of the stream is left in flight at exit
+    JSTAMP(5);
+    store_e1(bufE, out + (size_t)b * kCh * H * W, by, bx, H, W);
+    JSTAMP(6);
+    JSTAMP_CLOCK(8);
+    JSTAMP_WAITED(12);
+    JSTAMP_RELEASED(13);
     return;
   }
   fix_halo(bufE, kE1S, kT * by - 1, kT * bx - 1, H, W);
+  // Every thread is past the FFMA stages' weights: their slot takes the
+  // chunk kS positions on.
+  if (tid == 0) ring.template issue<kChunkBytes>(kChunks + kS, ws);
+  JSTAMP(5);
 
   // ---- encoder conv1_2 + relu + 2x2 max pool ----
-  stage_e2_pool<T, kJSlot>(bufE, ring, ws, kChunks + 1, be2, out + (size_t)b * kCh * h * w, h, w,
-                           by, bx);
-  cp_async_wait<0>();
+  {
+    float acc[2][32];
+#pragma unroll
+    for (int rb = 0; rb < 2; ++rb)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[rb][i] = 0.f;
+    if constexpr (is_f32<T>()) {
+      for (int c = 0; c < kChunks; ++c) {
+        const int q = kChunks + 1 + c, tap = c / kPerTap, dy = tap / 3, dx = tap % 3;
+        const int ch0 = (c % kPerTap) * kStepsPerChunk * Tc<T>::kKStep;
+        {
+          JWAIT_BEGIN;
+          ring.wait(q);
+          JWAIT_END;
+        }
+        chunk_rows_tf32<2, Wg<T>::kFold>(acc, ring.slot(q),
+                           [&](int rb, int j, uint32_t(&ah)[4], uint32_t(&al)[4]) {
+                             const int row = 2 * warp + rb + dy;  // e1 row of the warp's slice
+                             const int off[2] = {row * kE1S + g + dx, row * kE1S + g + 8 + dx};
+                             a_tf32(bufE + (ch0 + 8 * j + t) * kE1S * kE1S, kE1S * kE1S, off,
+                                    ah, al);
+                           });
+        JRELEASE(ring.template release<kChunkBytes>(q, ws));
+      }
+    } else {  // a chunk is a tap
+      const uint32_t a_base =
+          smem_addr(bufE + (2 * warp * kE1S + (lane & 15)) * kPitch + 8 * (lane >> 4));
+      const auto row_at = [&](int c, int rb) {
+        return a_base + ((rb + c / 3) * kE1S + c % 3) * kPitch * 2;
+      };
+      uint32_t a[2][kStepsPerChunk][4];
+      load_a(a[0], row_at(0, 0));
+      for (int c = 0; c < kChunks; ++c) {
+        const int q = kChunks + 1 + c;
+        {
+          JWAIT_BEGIN;
+          ring.wait(q);
+          JWAIT_END;
+        }
+        chunk_rows<2, Wg<T>::kFold>(acc, a, ring.slot(q), [&](int rb) { return row_at(c, rb); },
+                      c + 1 < kChunks ? row_at(c + 1, 0) : 0u);
+        JRELEASE(ring.template release<kChunkBytes>(q, ws));
+      }
+    }
+    // acc[rb][4 nt + e]: tile row 2 warp + rb, column g + 8 (e >> 1), channel
+    // 8 nt + 2 t + (e & 1). The pool's vertical max is rb, its horizontal max
+    // one shuffle away (lane ^ 4). Under bf16 the max of the rounded values is
+    // the rounded max.
+    T* out_b = out + (size_t)b * kCh * h * w;
+    const int oy = (kT / 2) * by + warp;
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float bias = __ldg(be2 + 8 * nt + 2 * t + (e & 1));
+        float v = fmaxf(fmaxf(acc[0][4 * nt + e] + bias, 0.f), fmaxf(acc[1][4 * nt + e] + bias, 0.f));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        if ((g & 1) == 0) {
+          const int ox = (kT / 2) * bx + (g >> 1) + 4 * (e >> 1);
+          store_value(out_b + ((size_t)(8 * nt + 2 * t + (e & 1)) * h + oy) * w + ox, v);
+        }
+      }
+  }
+  JSTAMP(6);
+  JSTAMP_CLOCK(8);
+  JSTAMP_WAITED(12);
+  JSTAMP_RELEASED(13);
 }
 
 template <typename T>
@@ -388,15 +703,15 @@ int launch_junction(const void* d, const void* wd1f, const float* bd1, const flo
 }  // namespace wct
 
 // d [B, 64, h, w] -> out [B, 64, h, w] (deep) or [B, 64, 2h, 2w] (shallow), in
-// the operand type of the entry point. wd1f, we2f: the 64->64 convs as B
-// fragments (f32: 3xTF32 [tap][k-step of 8][n-tile][lane][hi0, hi1, lo0, lo1],
-// ops/junction.py::_tc_frags; bf16: [tap][k-step of 16][n-tile pair][lane][8],
-// _tc_frags_bf16); wd2 [64][9][4] with co padded to 4 and we1 [3][9][64],
-// [ci][tap][co], f32 (bf16 values for the bf16 entry). Returns the CUDA error
-// of the launch.
-extern "C" int junction_f32(const float* d, const float* wd1f, const float* bd1,
+// the operand type of the entry point. wd1f, we2f: the 64->64 convs in the
+// wgmma B layout (ops/junction.py::_wgmma_weights; f32: [tap][half][hi, lo]
+// [co][32 channels] tf32, bf16: [tap][co][64 channels], each 8 KB block in
+// the 128-byte swizzle), 16-byte aligned; wd2 [64][9][4] with co padded to 4
+// and we1 [3][9][64], [ci][tap][co], f32 (bf16 values for the bf16 entry),
+// 16-byte aligned. Returns the CUDA error of the launch.
+extern "C" int junction_f32(const float* d, const void* wd1f, const float* bd1,
                             const float* wd2, const float* bd2, const float* we1,
-                            const float* be1, const float* we2f, const float* be2,
+                            const float* be1, const void* we2f, const float* be2,
                             float* out, int B, int h, int w, int deep, int clip,
                             void* stream) {
   return wct::launch_junction<float>(d, wd1f, bd1, wd2, bd2, we1, be1, we2f, be2, out, B, h, w,
@@ -419,3 +734,13 @@ extern "C" int junction_plan(int bf16, int* smem_bytes, int* blocks_per_sm) {
               : wct::kernel_plan(wct::junction_kernel<float>, wct::junction_smem<float>(),
                                  smem_bytes, blocks_per_sm);
 }
+
+#ifdef WCT_STAGE_TIMES
+// Copies n 64-bit stamps (at most kStampBlocks * kStamps) of the last
+// launches into dst (device memory) on `stream`. Returns the CUDA error.
+extern "C" int junction_stamps(void* dst, int n, void* stream) {
+  if (n > wct::kStampBlocks * wct::kStamps) n = wct::kStampBlocks * wct::kStamps;
+  return (int)cudaMemcpyFromSymbolAsync(dst, wct::g_stage_stamps, (size_t)n * 8, 0,
+                                        cudaMemcpyDeviceToDevice, (cudaStream_t)stream);
+}
+#endif

@@ -43,7 +43,13 @@ from wct_tpu_torch.ops import junction as junction_ops
 from wct_tpu_torch.ops import style_swap as swap_ops
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import to_nchw, to_nhwc
-from wct_tpu_torch.utils.device import params_device, resolve_device, scalar_on, set_numerics
+from wct_tpu_torch.utils.device import (
+    params_device,
+    resolve_device,
+    scalar_on,
+    set_numerics,
+    values_on,
+)
 
 DEFAULT_TARGETS = ("relu5_1", "relu4_1", "relu3_1", "relu2_1", "relu1_1")
 
@@ -304,7 +310,7 @@ def interpolate_style_caches(
         if entries[0].adain is not None:
             means = torch.stack([e.adain.mean for e in entries])
             stds = torch.stack([e.adain.std for e in entries])
-            w = torch.as_tensor(weights, device=means.device).to(means.dtype)
+            w = values_on(weights, means.device, means.dtype)
             adain = adain_ops.AdainStats(
                 mean=torch.tensordot(w, means, 1), std=torch.tensordot(w, stds, 1)
             )

@@ -7,6 +7,11 @@ and the flags, so an edited source rebuilds and a stale library is
 never loaded. A failed build raises with nvcc's output. Nothing here
 runs at import time: the CPU tests import every module on machines
 without ``nvcc``.
+
+``defines`` builds a variant with ``-D`` macros into a library of its
+own (``lib<name>_<macros>_<hash>.so``): ``WCT_STAGE_TIMES`` turns on the
+junction kernel's stage stamps (``tools/junction_stages.py``); the
+normal build has none.
 """
 
 from __future__ import annotations
@@ -26,7 +31,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_libs: dict[str, ctypes.CDLL] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
 
@@ -43,22 +48,28 @@ def kernel_names() -> list[str]:
     return sorted(p.stem for p in CSRC.glob("*.cu"))
 
 
-def library_path(name: str) -> Path:
+def _flags(defines: tuple[str, ...] = ()) -> tuple[str, ...]:
+    return NVCC_FLAGS + tuple(f"-D{d}" for d in defines)
+
+
+def library_path(name: str, defines: tuple[str, ...] = ()) -> Path:
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(_flags(defines)).encode())
     for dep in [src, *sorted(CSRC.glob("*.cuh"))]:
         h.update(dep.read_bytes())
-    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
+    tag = "".join(f"_{d.split('=')[0].lower()}" for d in defines)
+    return BUILD_DIR / f"lib{name}{tag}_{h.hexdigest()[:16]}.so"
 
 
-def build_all(names: list[str] | None = None) -> dict[str, Path]:
-    """Build the named kernels (default: all), one nvcc each, in parallel.
+def build_all(names: list[str] | None = None, defines: tuple[str, ...] = ()) -> dict[str, Path]:
+    """Build the named kernels (default: all), one nvcc each, in parallel,
+    with ``-D`` for each of ``defines``.
 
     Returns each library's path; ptxas's register and spill report is
     kept beside it as ``<lib>.log``.
     """
     names = kernel_names() if names is None else names
-    out = {n: library_path(n) for n in names}
+    out = {n: library_path(n, defines) for n in names}
     todo = {n: p for n, p in out.items() if not p.exists()}
     if not todo:
         return out
@@ -67,7 +78,7 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     procs = {}
     for n, lib in todo.items():
         tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        cmd = [nvcc, *_flags(defines), "-o", str(tmp), str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         ))
@@ -85,20 +96,24 @@ def build_all(names: list[str] | None = None) -> dict[str, Path]:
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+def load(name: str, defines: tuple[str, ...] = ()) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu`` (built with ``defines``),
+    built if needed."""
+    key = (name, *defines)
     with _lock:
-        if name not in _libs:
-            _libs[name] = ctypes.CDLL(str(build_all([name])[name]))
-        return _libs[name]
+        if key not in _libs:
+            _libs[key] = ctypes.CDLL(str(build_all([name], defines)[name]))
+        return _libs[key]
 
 
-def launch(name: str, lib: str, symbol: str, argtypes: list, args: tuple, device) -> None:
-    """Call ``symbol(*args, stream)`` of ``csrc/<lib>.cu`` on ``device``'s
-    current stream; raise if the launch is refused. Does not synchronise."""
+def launch(name: str, lib: str, symbol: str, argtypes: list, args: tuple, device,
+           defines: tuple[str, ...] = ()) -> None:
+    """Call ``symbol(*args, stream)`` of ``csrc/<lib>.cu`` (built with
+    ``defines``) on ``device``'s current stream; raise if the launch is
+    refused. Does not synchronise."""
     import torch
 
-    fn = getattr(load(lib), symbol)
+    fn = getattr(load(lib, defines), symbol)
     fn.argtypes = argtypes + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     with torch.cuda.device(device):

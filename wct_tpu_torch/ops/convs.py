@@ -14,6 +14,10 @@ layout copy per conv.
 from __future__ import annotations
 
 import contextlib
+import fcntl
+import json
+import os
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -79,6 +83,77 @@ def pad_reflect_nchw(x: torch.Tensor, pad: int = 1) -> torch.Tensor:
 _CUDNN_OK: dict[tuple, bool] = {}
 CONV_TIMES: dict[tuple, dict] = {}
 
+# The two implementations round differently, so a choice made by timing
+# would let two processes write different bits from the same inputs.
+# Every choice is therefore kept in one JSON file, read when a process
+# meets a shape it has not chosen and written when it makes a new
+# choice: ``{card key: {"inference": {shape: bool}, "training": {shape:
+# row}}}``, the card key naming the card, torch's version and cuDNN's
+# (``_card_key``), so a file from another card or version is simply not
+# read. Writes go through a temporary file and ``os.replace`` under a
+# lock, and a choice another process wrote first is the one taken.
+# Deleting the file makes the next process time afresh. ``None``:
+# choose in this process only (``tools/train_precision.py`` forces
+# choices that must not be kept).
+CHOICES_PATH: Path | None = Path(__file__).resolve().parents[2] / "build" / "conv_choices.json"
+
+
+def _card_key(device: torch.device) -> str:
+    return (f"{torch.cuda.get_device_name(device)} | torch {torch.__version__} | "
+            f"cudnn {torch.backends.cudnn.version()}")
+
+
+def _shape_key(key: tuple) -> str:
+    """A table key (shapes, dtype, ..., device last) as the file keeps it:
+    the device's card is in the card key."""
+    return " ".join(str(list(k)) if isinstance(k, tuple) else str(k).removeprefix("torch.")
+                    for k in key[:-1])
+
+
+def _read_choices(path: Path) -> dict:
+    """The choice file's contents, ``{}`` if there is none; raises on a
+    file that is not a JSON object (delete it to time afresh)."""
+    try:
+        text = path.read_text()
+    except FileNotFoundError:
+        return {}
+    try:
+        data = json.loads(text)
+    except ValueError as e:
+        raise RuntimeError(f"unreadable conv-choice file {path} ({e}); delete it to time "
+                           "the convs afresh") from e
+    if not isinstance(data, dict):
+        raise RuntimeError(f"conv-choice file {path} holds no JSON object; delete it")
+    return data
+
+
+def _choice(table: dict, section: str, key: tuple, decide):
+    """``table[key]``: from this process, else from the choice file, else
+    ``decide()``, which is then written to the file (unless another
+    process wrote that shape first: its choice is taken)."""
+    if key in table:
+        return table[key]
+    if CHOICES_PATH is None:
+        table[key] = decide()
+        return table[key]
+    card, shape = _card_key(key[-1]), _shape_key(key)
+    found = _read_choices(CHOICES_PATH).get(card, {}).get(section, {})
+    if shape in found:
+        table[key] = found[shape]
+        return table[key]
+    value = decide()
+    CHOICES_PATH.parent.mkdir(parents=True, exist_ok=True)
+    with open(CHOICES_PATH.with_name(CHOICES_PATH.name + ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        data = _read_choices(CHOICES_PATH)
+        entries = data.setdefault(card, {}).setdefault(section, {})
+        value = entries.setdefault(shape, value)
+        tmp = CHOICES_PATH.with_name(f"{CHOICES_PATH.name}.{os.getpid()}.tmp")
+        tmp.write_text(json.dumps(data, indent=1, sort_keys=True))
+        os.replace(tmp, CHOICES_PATH)
+    table[key] = value
+    return value
+
 
 @contextlib.contextmanager
 def _cudnn(enabled: bool):
@@ -90,10 +165,13 @@ def _cudnn(enabled: bool):
         torch.backends.cudnn.enabled = prev
 
 
-def _cudnn_ok(conv) -> bool:
+def _cudnn_ok(conv, device) -> bool:
     """Time cuDNN and PyTorch's own conv once; keep cuDNN unless it is
     more than 2× slower. The margin keeps the choice stable from run
-    to run: where both are sane they are within 2× of each other."""
+    to run: where both are sane they are within 2× of each other. The
+    card is drained first, so that no other stream's work (a mesh's other
+    shards) runs inside the timing."""
+    torch.cuda.synchronize(device)
     times = []
     for enabled in (True, False):
         with _cudnn(enabled):
@@ -104,10 +182,10 @@ def _cudnn_ok(conv) -> bool:
 def conv_by_shape(key: tuple, conv):
     """``conv()``, a conv on the card, under cuDNN or under PyTorch's own
     conv, whichever ``_cudnn_ok`` chose for ``key`` (its shapes, dtype and
-    device) the first time it met it."""
-    if key not in _CUDNN_OK:
-        _CUDNN_OK[key] = _cudnn_ok(conv)
-    with _cudnn(_CUDNN_OK[key]):
+    device) the first time this card, torch and cuDNN met it (the choice
+    file, ``CHOICES_PATH``)."""
+    use = _choice(_CUDNN_OK, "inference", key, lambda: _cudnn_ok(conv, key[-1]))
+    with _cudnn(use):
         return conv()
 
 
@@ -128,9 +206,11 @@ def _cudnn_ok_train(x, w, b) -> dict:
     forward where it was 5× slower (256→128 channels at 64², batch 8);
     chosen alone, cuDNN's backward after an FFT-path forward missed the
     card test's weight-gradient bound (PERF.md). Returns both
-    implementations' times and the two choices."""
+    implementations' times and the two choices. Times on a drained card,
+    as ``_cudnn_ok``."""
     mask = [True, True, True]
     row = {}
+    torch.cuda.synchronize(x.device)
     with torch.no_grad():
         for name, enabled in (("cudnn", True), ("native", False)):
             with _cudnn(enabled):
@@ -173,9 +253,8 @@ def _conv_train(x, w, b):
     """The conv on the card when gradients flow through it: the forward
     and the backward each under ``CONV_TIMES``'s choice for its shape."""
     key = (tuple(x.shape), tuple(w.shape), x.dtype, x.device)
-    if key not in CONV_TIMES:
-        CONV_TIMES[key] = _cudnn_ok_train(x.detach(), w.detach(), b.detach())
-    t = CONV_TIMES[key]
+    t = _choice(CONV_TIMES, "training", key,
+                lambda: _cudnn_ok_train(x.detach(), w.detach(), b.detach()))
     return _ConvByShape.apply(x, w, b, t["cudnn_fwd"], t["cudnn_bwd"])
 
 

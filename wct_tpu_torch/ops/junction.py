@@ -43,6 +43,8 @@ port's OIHW.
 from __future__ import annotations
 
 import ctypes
+import functools
+import weakref
 
 import torch
 import torch.nn.functional as F
@@ -187,6 +189,61 @@ def _tc_frags_bf16(w: torch.Tensor) -> torch.Tensor:
     return t.reshape(9, 4, 4, 32, 2, 4).contiguous()
 
 
+def _wgmma_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """OIHW ``[64, 64, 3, 3]`` → the junction kernel's ``wgmma`` B operand.
+
+    Per tap (``tap = 3·ky + kx``) the weights as N = 64 output-channel
+    rows of K-major input channels, 128 bytes a row, eight rows to a
+    1 KB swizzle atom, the 16-byte chunk ``c`` of row ``co`` stored at
+    chunk ``c ^ (co % 8)`` (``csrc/conv_wgmma.cuh``). bf16: ``[9, 4096]``,
+    a tap's 64 channels per row (8 KB a tap), the weights rounded to
+    bf16. f32: ``[9, 2, 2, 2048]``, ``[tap][half][hi, lo]``, 32 channels
+    of the half per row, ``hi = tf32(w)``, ``lo = tf32(w − hi)`` (16 KB a
+    half tap: hi's 8 KB, then lo's).
+    """
+    per_row = 64 if dtype == torch.bfloat16 else 32  # elements in 128 bytes
+    per_chunk = per_row // 8  # elements in 16 bytes
+    co = torch.arange(64, device=w.device)[:, None]
+    k = torch.arange(per_row, device=w.device)[None, :]
+    idx = ((co // 8) * 8 * per_row + (co % 8) * per_row
+           + ((k // per_chunk) ^ (co % 8)) * per_chunk + k % per_chunk).flatten()
+    t = w.permute(2, 3, 0, 1).reshape(9, 64, 64 // per_row, per_row).transpose(1, 2)
+    if dtype == torch.bfloat16:
+        src = t.to(torch.bfloat16).reshape(9, 64 * per_row)
+    else:
+        hi = _tf32(t)
+        src = torch.stack([hi, _tf32(t - hi)], dim=2).reshape(9, 2, 2, 64 * per_row)
+    out = torch.empty_like(src)
+    out[..., idx] = src
+    return out.contiguous()
+
+
+def _b_frags_bf16(w2d: torch.Tensor, n_tiles: int) -> torch.Tensor:
+    """``w2d [8·n_tiles, K]`` (K a multiple of 16) → ``mma.m16n8k16`` B
+    fragments ``[K/16, n_tiles, 32, 4]`` bf16: lane ``4g + t`` of n-tile
+    ``nt`` at k-step ``s`` holds ``w2d[8nt + g, 16s + 2t + {0, 1, 8, 9}]``
+    (registers b0, b1, low half first)."""
+    k = w2d.shape[1]
+    t = w2d.to(torch.bfloat16).reshape(n_tiles, 8, k // 16, 2, 4, 2)  # nt, g, s, r, t, e
+    return t.permute(2, 0, 1, 4, 3, 5).reshape(k // 16, n_tiles, 32, 4).contiguous()
+
+
+def _rgb_frags_bf16(w: torch.Tensor) -> torch.Tensor:
+    """The decoder's 64→3 conv OIHW ``[3, 64, 3, 3]`` → the bf16 junction's
+    ``mma.sync`` B fragments for it: ``[36, 32, 4]`` bf16, k-step
+    ``4·tap + q`` taking input channels ``16q .. 16q + 15`` of tap
+    ``3·ky + kx``, output channels 3..7 of the n-tile zero (9,216 bytes)."""
+    t = F.pad(w.permute(0, 2, 3, 1).reshape(3, 9 * 64), (0, 0, 0, 5))  # [8, tap·64 + ci]
+    return _b_frags_bf16(t, 1).reshape(36, 32, 4)
+
+
+def _e1_frags_bf16(w: torch.Tensor) -> torch.Tensor:
+    """conv0∘conv1_1 OIHW ``[64, 3, 3, 3]`` → the bf16 junction's
+    ``mma.sync`` B fragments: ``[2, 8, 32, 4]`` bf16 over ``k = 9·ci + tap``,
+    zero-padded from 27 to 32 (4,096 bytes)."""
+    return _b_frags_bf16(F.pad(w.reshape(64, 27), (0, 5)), 8)
+
+
 def _tail_taps_bf16(w: torch.Tensor, b: torch.Tensor):
     """Per-image ``w [B, 3, 64, 3, 3]``, ``b [B, 3]`` → the small-conv
     kernel's bf16 k-group layout and f32 bias for every image, in one
@@ -279,13 +336,59 @@ def encoder_head_cuda(x, we1, be1, w12, b12) -> torch.Tensor:
 _counter(encoder_head_cuda)
 
 
-def junction_cuda(d, wd1, bd1, wd2, bd2, we1, be1, w12=None, b12=None,
-                  deep: bool = True, clip: bool = False) -> torch.Tensor:
-    """The CUDA kernel of ``d``'s type on ``d [B, 64, h, w]`` (f32 or bf16,
-    contiguous, on the card; 2h and 2w multiples of 16) → ``[B, 64, h, w]``
-    (deep) or ``[B, 64, 2h, 2w]`` of the same type. Conditions as
-    ``encoder_head_cuda``."""
-    name = "junction_cuda"
+# The junction's weights in its kernel's layouts, per set of weight tensors:
+# the cascade calls the kernel with the same parameters every microbatch,
+# and packing them (a dozen small ops) took about a tenth of a bf16 launch.
+# An entry holds its source tensors by weak reference (an entry goes when
+# one of them does) and their versions, which an in-place update bumps. On
+# the card it also holds the stream that packed and an event recorded after
+# the packing: a call on another stream waits for the event and marks the
+# packed tensors as in use on its stream (``record_stream``), so that the
+# caching allocator does not hand their memory out again, once the entry is
+# replaced or evicted, before that stream's kernels have read them.
+_PACKED: dict[tuple, tuple] = {}
+_PACKED_MAX = 32
+
+
+def _drop_packed(key: tuple, ref: weakref.ref) -> None:
+    entry = _PACKED.get(key)
+    if entry is not None and any(r is ref for r in entry[0]):
+        del _PACKED[key]
+
+
+def _packed(lib: str, dtype: torch.dtype, weights: tuple, pack) -> tuple:
+    """``pack()`` for these weight tensors, once per (library, operand type,
+    tensors and their versions). ``pack`` returns new tensors only."""
+    key = (lib, dtype, *(id(t) for t in weights))
+    versions = tuple(t._version for t in weights)
+    hit = _PACKED.get(key)
+    if hit is not None and hit[1] == versions and all(r() is t for r, t in zip(hit[0], weights)):
+        _, _, out, stream, event = hit
+        if event is not None:
+            current = torch.cuda.current_stream(out[0].device)
+            if current != stream:
+                current.wait_event(event)
+                for t in out:
+                    t.record_stream(current)
+        return out
+    if len(_PACKED) >= _PACKED_MAX:
+        _PACKED.pop(next(iter(_PACKED)))
+    out = pack()
+    stream = event = None
+    if out[0].is_cuda:
+        stream = torch.cuda.current_stream(out[0].device)
+        event = torch.cuda.Event()
+        event.record(stream)
+    refs = tuple(weakref.ref(t, functools.partial(_drop_packed, key)) for t in weights)
+    _PACKED[key] = (refs, versions, out, stream, event)
+    return out
+
+
+def _junction_launch(name, d, wd1, bd1, wd2, bd2, we1, be1, w12, b12, deep, clip,
+                     defines=()) -> torch.Tensor:
+    """Check the junction's inputs and launch ``csrc/junction.cu``'s entry
+    of ``d``'s type (built with ``defines``), the 64→64 convs in the
+    ``wgmma`` layout (``_wgmma_weights``)."""
     _check_input(name, d, CHANNELS, scale=2)
     weights = {
         "the decoder's 64→64 conv": (wd1, (CHANNELS, CHANNELS, 3, 3)),
@@ -296,20 +399,40 @@ def junction_cuda(d, wd1, bd1, wd2, bd2, we1, be1, w12=None, b12=None,
     }
     if deep:
         if w12 is None or b12 is None:
-            raise ValueError("junction_cuda(deep=True) needs conv1_2's weights")
+            raise ValueError(f"{name}(deep=True) needs conv1_2's weights")
         weights.update({"conv1_2": (w12, (CHANNELS, CHANNELS, 3, 3)),
                         "conv1_2's bias": (b12, (CHANNELS,))})
     _check_on_card(name, d, weights)
     b, _, h, w = d.shape
     shape = (b, CHANNELS, h, w) if deep else (b, CHANNELS, 2 * h, 2 * w)
     out = torch.empty(shape, dtype=d.dtype, device=d.device)
-    t1, t2, t3 = _frags(wd1, d.dtype), _taps(wd2, pad_co=4, dtype=d.dtype), _taps(we1, dtype=d.dtype)
-    c1, c2, c3 = _f32(bd1), _f32(bd2), _f32(be1)
-    t4, c4 = (_frags(w12, d.dtype), _f32(b12)) if deep else (t1, c1)  # never read when shallow
+    def pack():
+        if d.dtype == torch.bfloat16:
+            t2, t3 = _rgb_frags_bf16(wd2), _e1_frags_bf16(we1)
+        else:
+            t2, t3 = _taps(wd2, pad_co=4), _taps(we1)
+        t1 = _wgmma_weights(wd1, d.dtype)
+        c1, c2, c3 = (t.float().clone() for t in (bd1, bd2, be1))
+        t4, c4 = (_wgmma_weights(w12, d.dtype), b12.float().clone()) if deep else (t1, c1)
+        return t1, c1, t2, c2, t3, c3, t4, c4  # t4, c4 never read when shallow
+
+    src = (wd1, bd1, wd2, bd2, we1, be1) + ((w12, b12) if deep else ())
+    t1, c1, t2, c2, t3, c3, t4, c4 = _packed("junction", d.dtype, src, pack)
     _build.launch(name, "junction", f"junction_{DTYPES[d.dtype]}", [_PTR] * 10 + [_INT] * 5,
             (d.data_ptr(), t1.data_ptr(), c1.data_ptr(), t2.data_ptr(), c2.data_ptr(),
              t3.data_ptr(), c3.data_ptr(), t4.data_ptr(), c4.data_ptr(), out.data_ptr(),
-             b, h, w, int(deep), int(clip)), d.device)
+             b, h, w, int(deep), int(clip)), d.device, defines)
+    return out
+
+
+def junction_cuda(d, wd1, bd1, wd2, bd2, we1, be1, w12=None, b12=None,
+                  deep: bool = True, clip: bool = False) -> torch.Tensor:
+    """The CUDA kernel of ``d``'s type on ``d [B, 64, h, w]`` (f32 or bf16,
+    contiguous, on the card; 2h and 2w multiples of 16) → ``[B, 64, h, w]``
+    (deep) or ``[B, 64, 2h, 2w]`` of the same type. Conditions as
+    ``encoder_head_cuda``."""
+    out = _junction_launch("junction_cuda", d, wd1, bd1, wd2, bd2, we1, be1, w12, b12, deep,
+                           clip)
     _counted(junction_cuda, d)
     return out
 
@@ -401,7 +524,10 @@ def junction_nchw(d, dec_w1, dec_b1, dec_w2, dec_b2, enc_w0, enc_b0, enc_w11, en
     _check_input("junction", d, CHANNELS, scale=2)
     if deep and (enc_w12 is None or enc_b12 is None):
         raise ValueError("junction(deep=True) needs conv1_2's weights")
-    we1, be1 = fold_conv0(enc_w0, enc_b0, enc_w11, enc_b11)
+    # Folded once per set of parameters, so that the kernel's packed
+    # weights (_packed) are found again on the next call.
+    we1, be1 = _packed("fold_conv0", torch.float32, (enc_w0, enc_b0, enc_w11, enc_b11),
+                       lambda: fold_conv0(enc_w0, enc_b0, enc_w11, enc_b11))
     return _route("junction", d, junction_cuda, _junction_plain, dec_w1, dec_b1, dec_w2,
                   dec_b2, we1, be1, enc_w12, enc_b12, deep, clip)
 

@@ -38,7 +38,7 @@ from typing import Literal
 import torch
 
 from wct_tpu_torch.ops import gram, reductions, sqrtm
-from wct_tpu_torch.utils.device import scalar_on
+from wct_tpu_torch.utils.device import scalar_on, values_on
 
 # Reference ops.py:~70: eps=1e-8 on the Gram diagonal, eigenvalues
 # truncated at 1e-5.
@@ -409,7 +409,7 @@ def interpolate_stats(stats: list[StyleStats], weights) -> StyleStats:
     """
     kernels = torch.stack([s.kernel for s in stats])  # [K, C, C] or [K, G, Cg, Cg]
     means = torch.stack([s.mean for s in stats])  # [K, C]
-    w = torch.as_tensor(weights, device=kernels.device).to(kernels.dtype)
+    w = values_on(weights, kernels.device, kernels.dtype)
     return StyleStats(kernel=torch.tensordot(w, kernels, 1), mean=torch.tensordot(w, means, 1))
 
 

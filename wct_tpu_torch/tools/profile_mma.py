@@ -1,4 +1,4 @@
-"""Measure the rate of ``mma.sync`` on the card, operands in registers.
+"""Measure the rate of ``mma.sync`` and ``wgmma`` on the card.
 
     python -m wct_tpu_torch.tools.profile_mma [--iters 4096] [--waves 24]
 
@@ -12,6 +12,13 @@ limit, then one JSON line per mode with its ms and TFLOP/s:
 - ``3xtf32_kstep``: the kernels' k-step with operands in registers (split
   into hi and lo, three ``mma`` into a fresh partial, the fold);
   ``tflops`` counts its useful work, ``mma_tflops`` the three passes.
+
+Then ``csrc/wgmma_rate.cu``: one block of two warpgroups per SM, each
+issuing groups of four ``wgmma`` in the junction kernel's RS form (A in
+registers, B through a 128-byte-swizzle descriptor) back to back:
+
+``wgmma_bf16_m64n64k16`` and ``wgmma_tf32_m64n64k8``, the junction's two
+instructions (N = 64, its output channels).
 
 Compare with the data-sheet dense rates of the card (H100 SXM: 495 TF32,
 989 bf16 TFLOP/s).
@@ -36,6 +43,8 @@ MODES = {
     2: ("3xtf32_kstep", 2 * 16 * 8 * 8, 3),
 }
 
+WGMMA_MODES = ("wgmma_bf16_m64n64k16", "wgmma_tf32_m64n64k8")
+
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__)
@@ -58,6 +67,20 @@ def main(argv=None) -> None:
         print(json.dumps({"mode": name, "blocks": blocks, "iters": args.iters, "ms": ms,
                           "tflops": tflops, "mma_tflops": tflops * passes,
                           "finite": bool(torch.isfinite(out).all())}), flush=True)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    flop = _build.load("wgmma_rate").wgmma_rate_flop
+    flop.argtypes, flop.restype = [ctypes.c_int], ctypes.c_longlong
+    for mode, name in enumerate(WGMMA_MODES):
+        def run(mode=mode):
+            _build.launch("wgmma_rate", "wgmma_rate", "wgmma_rate",
+                          [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 2,
+                          (mode, out.data_ptr(), sms, args.iters), dev)
+
+        ms = cuda_ms(run, 3, 1)
+        tflops = sms * 2 * args.iters * 4 * flop(mode) / ms / 1e9
+        print(json.dumps({"mode": name, "blocks": sms, "iters": args.iters, "ms": ms,
+                          "tflops": tflops, "finite": bool(torch.isfinite(out[: sms * THREADS]).all())}),
+              flush=True)
 
 
 if __name__ == "__main__":

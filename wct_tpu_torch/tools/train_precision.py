@@ -73,7 +73,8 @@ def main(argv=None) -> None:
         return backward(ctx, gy)
 
     convs._ConvByShape.backward = staticmethod(recording)
-    choose = convs._cudnn_ok_train
+    choose, choices_path = convs._cudnn_ok_train, convs.CHOICES_PATH
+    convs.CHOICES_PATH = None  # forced choices stay in this process
     try:
         loss64, g64 = _grads(dec, enc, batch, args.target, torch.float64)
         trail64 = list(entering)
@@ -108,6 +109,7 @@ def main(argv=None) -> None:
     finally:
         convs._ConvByShape.backward = backward
         convs._cudnn_ok_train = choose
+        convs.CHOICES_PATH = choices_path
 
 
 if __name__ == "__main__":

@@ -79,6 +79,20 @@ def scalar_on(value, device: torch.device) -> torch.Tensor:
     return torch.full((), float(value), dtype=torch.float32, device=device)
 
 
+def values_on(values, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    """``torch.as_tensor(values, device=device).to(dtype)``, the same
+    values, without the wait: a tensor passed in goes as it is; numbers
+    (a list, a numpy array) are converted to ``dtype`` on the host and
+    filled in on the device one ``torch.full`` each, as ``scalar_on``
+    fills α, so no copy from pageable host memory waits for the queue.
+    For the few interpolation weights of a style blend."""
+    if torch.is_tensor(values):
+        return values.to(device=device).to(dtype)
+    host = torch.as_tensor(values).to(dtype)
+    return torch.stack([torch.full((), v, dtype=dtype, device=device)
+                        for v in host.flatten().tolist()]).reshape(host.shape)
+
+
 def card_name() -> str:
     """The first card's name and power limit, as ``nvidia-smi
     --query-gpu=name,power.limit --format=csv,noheader`` prints them: the
