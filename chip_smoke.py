@@ -345,6 +345,7 @@ def phase_kernel(params, content, style, cfg, name, spd=True, phase="kernel"):
         check(row["bitwise_repeatable"], f"ns_sqrtm at {label}: two calls differ")
         check(row["alone_equals_batch_bitwise"], f"ns_sqrtm at {label}: alone differs from batch")
         rows.append(row)
+    check_hgmma("ns_sqrtm", ("ns_product", "ns_cluster"), phase)
     # The kernel's line: one microbatch's five content levels.
     main_rows = [r for r in rows if r["case"] in cfg.relu_targets]
     return {
@@ -724,6 +725,16 @@ def sass_counts(lib: Path, mnemonic: str) -> dict:
     return out
 
 
+def check_hgmma(lib: str, functions: tuple[str, ...], phase: str) -> None:
+    """Fail unless every kernel function of ``csrc/<lib>.cu`` whose name
+    holds one of ``functions`` (its wgmma routes) has HGMMA in its SASS."""
+    hgmma = sass_counts(_build.library_path(lib), "HGMMA")
+    mine = {f: n for f, n in hgmma.items() if any(k in f for k in functions)}
+    emit({"phase": phase, "kernel": lib, "sass_hgmma_per_function": mine})
+    check(len(mine) > 0 and all(n > 0 for n in mine.values()),
+          f"{lib}'s SASS lacks HGMMA in a wgmma function: {mine}")
+
+
 def phase_junction_stages(params, content, cache, cfg):
     """Where a junction tile's time goes, per stage, in both forms, on the
     main path's relu4_1 decoder state ``[4, 64, 256, 256]`` (trained
@@ -978,11 +989,28 @@ def phase_conv_small_kernels(params, t, name):
     return {"conv3x3_small": line("ms_nhwc"), "conv3x3_small_nchw": line("ms_nchw")}
 
 
+def library_gram(x):
+    """One PyTorch call for the same function, the yardstick of
+    ``library_ms``: ``baddbmm(−N·μμᵀ, x, xᵀ)`` in full f32 (TF32 off) on
+    the f32 upcast, after its mean; no route calls it."""
+    x32 = x.float()
+    n = x32.shape[-1]
+    mu = x32.mean(-1)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        return torch.baddbmm(mu[:, :, None] * mu[:, None, :], x32, x32.mT, beta=-n), mu
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def phase_gram_kernel(t, name, edge_cases=True, extra=(), phase="kernel"):
     """centered_gram against its plain version: the five levels' bf16
     features of the throughput cascade at B = 4 and, with ``edge_cases``,
-    at B = 1, their f32 upcast at relu1_1, and N = 7, 132 and 1000; then
-    the ``extra`` (case, x) pairs."""
+    at B = 1, their f32 upcast at relu1_1, the grouped shapes four groups
+    give at relu1_1 and relu2_1 (``[16, 16, 262,144]``, ``[16, 32,
+    65,536]``), and N = 7, 132 and 1000; then the ``extra`` (case, x)
+    pairs."""
     flops, bw = peaks(name)
     tf32 = tf32_peak(name)
     gen = torch.Generator().manual_seed(SEED + 4)
@@ -1015,12 +1043,12 @@ def phase_gram_kernel(t, name, edge_cases=True, extra=(), phase="kernel"):
         nbytes = bsz * (n * c * x.element_size() + (c * c + c) * 4)
         bound, by = conv_bound_ms(3 * ops, nbytes, tf32, bw)
         row["ffma_floor_ms"] = ops / flops * 1e3
-        x32 = x.float()
-        library = lambda: ([torch.cov(xi) * (n - 1) for xi in x32], x32.mean(-1))  # noqa: E731
+        # The two passes' own floor: x read twice.
+        row["two_pass_floor_ms"] = max(3 * ops / tf32, 2 * bsz * n * c * x.element_size() / bw) * 1e3
         k = 10 if main else 3
         row.update(ms=cuda_ms(lambda: gram.centered_gram_cn(x), k),
                    plain_ms=cuda_ms(lambda: gram._centered_gram_plain(x), k // 2 + 1),
-                   library_ms=cuda_ms(library, k // 2 + 1),
+                   library_ms=cuda_ms(lambda: library_gram(x), k // 2 + 1),
                    bound_ms=bound, bound_by=by)
         emit(row)
         check(err <= GRAM_LIMIT and mean_err <= GRAM_LIMIT,
@@ -1038,10 +1066,15 @@ def phase_gram_kernel(t, name, edge_cases=True, extra=(), phase="kernel"):
         for level, feats in t["feats"].items():
             run(f"{level}_b1", feats[:1].flatten(2).contiguous(), False)
         run("relu1_1_b4_f32", t["feats"]["relu1_1"].flatten(2).float().contiguous(), False)
+        for level in ("relu1_1", "relu2_1"):  # grouped WCT, four groups: [B·4, C/4, N]
+            f = t["feats"][level].flatten(2)
+            run(f"{level}_b4_groups4", f.reshape(4 * f.shape[0], f.shape[1] // 4, -1).contiguous(),
+                False)
         for n, c in ((7, 256), (132, 512), (1000, 32)):
             run(f"random_n{n}_c{c}_b6", torch.rand(6, c, n, generator=gen).to(DEV), False)
     for case, x in extra:
         run(case, x, False)
+    check_hgmma("centered_gram", ("gram_kernel",), phase)
     main_rows = [r for r in rows if r["main_path"]]
     return {"centered_gram": {
         "max_abs_err": max(r["max_abs_err"] for r in main_rows),

@@ -1,5 +1,5 @@
 // Channel mean and centred Gram of a feature map, two passes over x, the
-// products on the tensor cores in 3xTF32.
+// products on wgmma in 3xTF32.
 //
 // Replaces the TPU kernel wct_tpu/ops/gram_pallas.py::centered_gram
 // (_gram_kernel). On channel-major features x [B, C, N] (f32, or bf16 upcast as
@@ -13,57 +13,127 @@
 //
 // Bound on an H100: the distinct entries need N * C * (C + 1) FLOP per image,
 // three times over on the TF32 tensor cores (3 x FLOP / 495 TFLOP/s); x is read
-// once. At 512 px, batch 4, relu4_1 ... relu1_1 (N x C = 4,096 x 512 ...
-// 262,144 x 64) each need 4.3 GFLOP, 0.026 ms at that rate (FFMA floor 0.064
-// ms at 67 TFLOP/s), relu5_1 a quarter of that; the levels read 4 to 134 MB of
-// bf16 (up to 0.040 ms at 3.35 TB/s): relu1_1 is bound by its bytes, the
-// others by operations.
+// once by the function. At 512 px, batch 4, relu4_1 ... relu1_1 (N x C = 4,096
+// x 512 ... 262,144 x 64) each need 4.3 GFLOP, 0.026 ms at that rate, relu5_1 a
+// quarter of that; relu1_1 reads 134 MB of bf16 (0.040 ms at 3.35 TB/s), so it
+// is bound by its bytes, the others by operations. The two passes read x
+// twice: at relu1_1 their own floor is twice the bytes bound.
 //
-// The TPU kernel walks its tiles in order on one core and carries the sums in
-// scratch memory. Here blocks run in no order, so the sum over N is split:
-//   1. mean_kernel: one block per (image, channel) row sums the row (each
-//      thread a fixed stride, then a tree in shared memory) and divides by N.
-//   2. gram_partial_kernel: a block owns one 64 x 64 tile on or above the
-//      diagonal (36 tiles at C = 512, 10 at 256, 3 at 128; on a diagonal
-//      tile the warp below it idles) on one split of `split` columns. It
-//      stages 32 columns of its two row tiles at a time
-//      with 16-byte cp.async, double-buffered behind the products (plain loads
-//      where N or the base leave rows unaligned), channels past C as zeros.
-//      Fragments are centred in registers (x - mean is never stored), masked
-//      past the split's last column, split into tf32 hi and lo, and each
-//      k-step of 8 columns runs lo*hi + hi*lo + hi*hi into a fresh partial.
-//      Both fragment patterns read rows of the staged tiles, so one pitch
-//      keeps them free of bank conflicts. The tile's partial goes to a
-//      workspace [B, S, C, C] at its place above the diagonal.
-//   3. gram_reduce_kernel adds the S partials of each entry i <= j in the
-//      order s = 0 .. S - 1 and writes it to (i, j) and (j, i): G is exactly
-//      symmetric.
+// Two launches. The TPU kernel walks its tiles in order on one core and
+// carries the sums in scratch memory; here blocks run in no order, so:
+//   1. mean_kernel: one block per (image, channel) row sums the row in chunks
+//      of 8 (thread t takes chunks t, t + 256, ...; 16-byte loads where rows
+//      are aligned, the same order where not), then a fixed tree; it also
+//      zeroes the counters of launch 2.
+//   2. gram_kernel: one warpgroup per block owns a 64 x 64 tile on or above
+//      the diagonal (36 tiles at C = 512, 10 at 256, 3 at 128, 1 at 64) over
+//      one split of `split` columns of N. For C <= 32 (grouped WCT hands
+//      [B G, C / G, N]) a tile holds the rows of 64 / C images and keeps only
+//      each image's own block. Column slices of 32 of the tile's 64 rows
+//      arrive in a ring of raw_stages stages, each tile one TMA copy of a 64 x 32
+//      box of x seen as [B C, N] (its 128- or 64-byte swizzle keeps the
+//      reads below free of bank conflicts), on mbarriers; plain loads where
+//      rows are not 16-byte aligned.
+//      Each element is centred (x - mean, f32) and split once into hi =
+//      tf32(v) and lo = tf32(v - hi), written into hi and lo planes in the
+//      128-byte-swizzled K-major layout wgmma reads, one slice ahead of the
+//      wgmma's: the centred values exist only there and in registers. (The
+//      centring pass and the SS form's reads of both planes bound a block,
+//      with shared-memory traffic and issue at two blocks an SM; taking A
+//      straight from the staged box into registers, the RS form, measured
+//      no faster: PERF.md.) Both operands are rows of x, so D =
+//      A . B^T is the Gram tile, lo.hi + hi.lo + hi.hi per k-step of 8 into
+//      a partial opened with scale-d 0; every kFoldSteps k-steps the partial
+//      is folded into the running sums, compensated. A diagonal tile reads
+//      one set of planes for both operands; every warp works on it.
+//      With one split the block writes G; else it writes its partial to a
+//      workspace. The splits' partials are added in a fixed order: in groups
+//      of kGroupSplits (s = 16 g .. 16 g + 15), each by the last block of
+//      its group to finish (a counter), then the groups in order g = 0, 1,
+//      ... by the last group to finish, which writes the entries i <= j to
+//      (i, j) and (j, i): G is exactly symmetric.
 // ReLU features repeat values (every zero gives the same x - mean), and a
 // long f32 sum of equal terms rounds the same way at every step: its error
 // grows with the count, not with its square root (5e-6 on a 262,144-term
-// mean, measured; 2e-6 on a Gram with chains of 64 FMAs). So no plain f32 sum
-// here is longer than 16 terms: the row sums, the folds of each k-step's
-// partial into the running sums and the reduction over splits are
-// compensated (Kahan), and a partial holds 8 columns.
-// No atomics anywhere, the tiles depend on C and S on N alone, so an image's
-// result is the same bits alone and in any batch: the TPU kernel's reason to
-// exist.
+// mean, measured; 2e-6 on a Gram with chains of 64 FMAs). So every long f32
+// sum here is compensated (Kahan): the row sums, the folds of each partial
+// into the running sums and the sum over splits; a partial holds
+// 8 kFoldSteps columns (PERF.md: its distance from float64).
+// No sum depends on the batch or on which block finishes last, and the tiles
+// depend on C and the splits on N alone, so an image's result is the same
+// bits alone and in any batch: the TPU kernel's reason to exist.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cudaTypedefs.h>
+
 #include <cstdint>
 
-#include "ptx.cuh"
+#include "conv_wgmma.cuh"
 
-namespace wct {
+namespace {
 
-constexpr int kGramThreads = 256;  // mean and reduce kernels
-constexpr int kTileThreads = 128;  // the partial kernel: 2 x 2 warps of 32 x 32
-constexpr int kGT = 64;            // edge of a block's Gram tile, in channels
-constexpr int kGK = 32;            // columns of x staged at a time
+using wct::desc_sw128;
+using wct::mbar_expect_tx;
+using wct::mbar_init;
+using wct::mbar_wait;
+using wct::round_tf32;
+using wct::smem_addr;
 
-// sum += v with the rounding error of the add carried in comp (Kahan).
+constexpr int kMeanThreads = 256;
+constexpr int kGramThreads = 128;  // one warpgroup
+constexpr int kGT = 64;            // rows of a tile
+constexpr int kGK = 32;            // columns of a slice (128 bytes of tf32)
+constexpr int kFoldSteps = 4;      // k-steps of 8 per partial (PERF.md: 1, 2, 4 tried)
+constexpr int kGroupSplits = 16;   // splits summed together before the sum over groups
+
+// Groups of kGroupSplits splits in a sum over S splits.
+__host__ __device__ constexpr int groups_of(int S) { return (S + kGroupSplits - 1) / kGroupSplits; }
+constexpr int kPlanes = 2 * 16384; // a buffer of two tiles' hi and lo planes (two buffers)
+static_assert(kGK / 8 % kFoldSteps == 0, "a partial never spans two slices");
+
+// Stages of the ring of raw slices: what keeps two blocks to an SM beside the
+// plane buffers.
+template <typename T>
+__host__ __device__ constexpr int raw_stages() {
+  return sizeof(T) == 4 ? 3 : 5;
+}
+
+// Bytes of one staged tile (a TMA box of 64 rows x 32 columns) and of a stage.
+template <typename T>
+__host__ __device__ constexpr int raw_box() {
+  return kGT * kGK * static_cast<int>(sizeof(T));
+}
+template <typename T>
+__host__ __device__ constexpr int raw_stage() {
+  return 2 * raw_box<T>();
+}
+
+// Byte offset of the 16-byte chunk c of row r in a box as the TMA copy wrote
+// it: rows of 128 bytes (f32) with the 128-byte swizzle, or of 64 bytes (bf16)
+// with the 64-byte one (the chunk bits [4, 7) or [4, 6) XOR-ed with [7, 10)
+// or [7, 9) of the offset).
+template <typename T>
+__device__ __forceinline__ int raw_at(int r, int c) {
+  if constexpr (sizeof(T) == 4) return r * 128 + ((c ^ (r & 7)) << 4);
+  return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
+}
+
+// A 64 x 32 box of the tensor map at column c0, row c1, into shared memory at
+// dst (1 KB-aligned), completing on bar.
+__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c0, int c1,
+                                        uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
+      "%3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// sum += v with the rounding error of the add carried in comp (Kahan); the
+// sum is sum - comp.
 __device__ __forceinline__ void add_compensated(float& sum, float& comp, float v) {
   const float y = v - comp;
   const float t = sum + y;
@@ -73,205 +143,403 @@ __device__ __forceinline__ void add_compensated(float& sum, float& comp, float v
 
 __device__ __forceinline__ float load_f32(const float* p) { return __ldg(p); }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) { return __bfloat162float(*p); }
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-// x [rows, N] -> mean [rows]; one block per row, grid (C, B).
+// Eight elements from 16-byte-aligned p (f32: two 16-byte loads), as floats.
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = __ldg(reinterpret_cast<const float4*>(p));
+  const float4 b = __ldg(reinterpret_cast<const float4*>(p) + 1);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w, v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+__device__ __forceinline__ void load8(const __nv_bfloat16* p, float (&v)[8]) {
+  const uint4 a = __ldg(reinterpret_cast<const uint4*>(p));
+  const uint32_t w[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    v[2 * i] = wct::bf16_lo(w[i]);
+    v[2 * i + 1] = wct::bf16_hi(w[i]);
+  }
+}
+
+// x [rows, N] -> mean [rows]; one block per row, thread t summing chunks of 8
+// columns t, t + 256, ... in order, four in flight. vec: N % 8 == 0 and x
+// 16-byte aligned (the same chunks and order either way). The blocks also
+// zero the n_counters counters of launch 2.
 template <typename T>
-__global__ void __launch_bounds__(kGramThreads)
-mean_kernel(const T* __restrict__ x, float* __restrict__ mean, int N) {
-  __shared__ float red[kGramThreads];
-  const size_t r = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+__global__ void __launch_bounds__(kMeanThreads)
+mean_kernel(const T* __restrict__ x, float* __restrict__ mean, int* __restrict__ counters,
+            int n_counters, int N, int vec) {
+  __shared__ float red[kMeanThreads];
+  const size_t r = blockIdx.x;
+  for (int i = blockIdx.x * kMeanThreads + threadIdx.x; i < n_counters; i += gridDim.x * kMeanThreads)
+    counters[i] = 0;
   const T* p = x + r * N;
   float s = 0.f, comp = 0.f;
-  for (int n = threadIdx.x; n < N; n += kGramThreads) add_compensated(s, comp, load_f32(p + n));
-  red[threadIdx.x] = s;
+  const int chunks = (N + 7) / 8;
+  for (int c0 = threadIdx.x; c0 < chunks; c0 += 4 * kMeanThreads) {
+    float v[4][8];  // four chunks in flight, summed in order
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int n0 = 8 * (c0 + u * kMeanThreads);
+      if (vec && n0 < N) {
+        load8(p + n0, v[u]);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) v[u][e] = n0 + e < N ? load_f32(p + n0 + e) : 0.f;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        if (8 * (c0 + u * kMeanThreads) + e < N) add_compensated(s, comp, v[u][e]);
+  }
+  red[threadIdx.x] = s - comp;
   __syncthreads();
-  for (int h = kGramThreads / 2; h > 0; h >>= 1) {
+  for (int h = kMeanThreads / 2; h > 0; h >>= 1) {
     if (threadIdx.x < h) red[threadIdx.x] += red[threadIdx.x + h];
     __syncthreads();
   }
-  if (threadIdx.x == 0) mean[r] = red[0] / (float)N;
+  if (threadIdx.x == 0) mean[r] = red[0] / static_cast<float>(N);
 }
 
-// grid (tiles * (tiles + 1) / 2, S, B); work [B, S, C, C]. kAsync: every row
-// of x starts on 16 bytes, so tiles are staged with cp.async.
-template <typename T, bool kAsync>
-__global__ void __launch_bounds__(kTileThreads)
-gram_partial_kernel(const T* __restrict__ x, const float* __restrict__ mean,
-                    float* __restrict__ work, int C, int N, int split) {
-  // Row pitch of a staged tile in elements: 16-byte rows whose 32-bit word
-  // pitch is 4 or 20 mod 32, so that lanes at rows g, columns t fall on
-  // distinct banks (two bf16 lanes share a word).
-  constexpr int P = sizeof(T) == 4 ? kGK + 4 : kGK + 8;
-  constexpr int kEl = 16 / sizeof(T);    // elements per 16-byte chunk
-  constexpr int kRowChunks = kGK / kEl;  // chunks per staged row
-  __shared__ __align__(16) T stage[2][2][kGT * P];  // [buffer][tile i, tile j]
+// Where row r of a tile comes from: image z, channel tile * 64 + r (dense),
+// or, packed (C <= 32), image z * (64 / C) + r / C, channel r % C. Either way
+// the tile's rows are rows first(tile) .. + 64 of x seen as [B C, N].
+struct Rows {
+  int B, C, packed, z;
+  __device__ __forceinline__ int image(int r) const { return packed ? z * (kGT / C) + r / C : z; }
+  __device__ __forceinline__ int channel(int tile, int r) const {
+    return packed ? r % C : tile * kGT + r;
+  }
+  __device__ __forceinline__ bool valid(int tile, int r) const {
+    return channel(tile, r) < C && image(r) < B && (!packed || r < kGT / C * C);
+  }
+  __device__ __forceinline__ size_t index(int tile, int r) const {
+    return static_cast<size_t>(image(r)) * C + channel(tile, r);
+  }
+  __device__ __forceinline__ int first(int tile) const {
+    return packed ? z * (kGT / C) * C : z * C + tile * kGT;
+  }
+};
 
-  const int tiles = (C + kGT - 1) / kGT;
-  int ti = 0, rem = blockIdx.x;
+// Float offset of (r, k) in a 64 x 32 plane: rows of 128 bytes, eight to a 1 KB
+// atom, the 16-byte chunk c of row r at chunk c ^ (r % 8) (desc_sw128's layout).
+__device__ __forceinline__ int plane_at(int r, int chunk) {
+  return (r >> 3) * 256 + (r & 7) * 32 + ((chunk ^ (r & 7)) << 2);
+}
+
+// grid (S, tile pairs, image groups); work holds [jobs, S, 32, 128] partials
+// (S > 1), counters one per job. kTma: N % (16 / sizeof(T)) == 0 and x
+// 16-byte aligned, so `map` describes x as [B C, N] in boxes of 64 x 32.
+template <typename T, bool kTma>
+__global__ void __launch_bounds__(kGramThreads)
+gram_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict__ x,
+            const float* __restrict__ mean, float* __restrict__ gram, float* __restrict__ work,
+            int* __restrict__ counters, int B, int C, int N, int split, int packed) {
+  extern __shared__ float4 smem4[];
+  __shared__ uint64_t full[raw_stages<T>()];
+  __shared__ int s_last;
+  unsigned char* base = reinterpret_cast<unsigned char*>(smem4);
+  float* planes = reinterpret_cast<float*>(base + (-smem_addr(base) & 1023u));
+  unsigned char* raw = reinterpret_cast<unsigned char*>(planes) + 2 * kPlanes;
+
+  const int tiles = packed ? 1 : (C + kGT - 1) / kGT;
+  int ti = 0, rem = blockIdx.y;
   while (rem >= tiles - ti) {  // row ti holds tiles ti .. tiles - 1
     rem -= tiles - ti;
     ++ti;
   }
   const int tj = ti + rem;
   const bool diag = ti == tj;
-  const int s = blockIdx.y, S = gridDim.y, b = blockIdx.z;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
-  const int wr = (warp >> 1) * 32, wc = (warp & 1) * 32;  // the warp's rows in tile i, j
-  // On a diagonal tile the warp at rows 32.., columns ..31 holds only
-  // entries below the diagonal, which the reduction never reads.
-  const bool below = diag && wr > wc;
-  const T* xb = x + (size_t)b * C * N;
-  const float* mb = mean + (size_t)b * C;
-  const int n0 = s * split, n1 = min(n0 + split, N);
+  const int s = blockIdx.x, S = gridDim.x;
+  const Rows rows{B, C, packed, static_cast<int>(blockIdx.z)};
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = s * split, n1 = min(n0 + split, N), slices = (n1 - n0 + kGK - 1) / kGK;
 
-  // The means of the rows this thread's fragments read; 0 past C, where
-  // the staged rows are zeros too.
-  float mu_a[2][2], mu_b[4];
+  // This thread centres row tid / 2 of each tile, columns 16 (tid % 2) ...
+  const int cr = tid >> 1, ch = tid & 1;
+  const T* src[2];
+  float mu[2];
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int c = ti * kGT + wr + 16 * m + g + 8 * h;
-      mu_a[m][h] = c < C ? __ldg(mb + c) : 0.f;
-    }
-#pragma unroll
-  for (int n = 0; n < 4; ++n) {
-    const int c = tj * kGT + wc + 8 * n + g;
-    mu_b[n] = c < C ? __ldg(mb + c) : 0.f;
+  for (int u = 0; u < 2; ++u) {
+    const int tile = u ? tj : ti;
+    const bool ok = rows.valid(tile, cr);
+    src[u] = ok ? x + rows.index(tile, cr) * N : nullptr;
+    mu[u] = ok ? __ldg(mean + rows.index(tile, cr)) : 0.f;
   }
 
-  // Columns k0 .. k0 + kGK of tile i (and of tile j off the diagonal);
-  // past n1 or C the stage holds zeros.
-  auto fill = [&](int buf, int k0) {
+  // Thread 0: slice q (columns n0 + 32 q ..) of each tile into raw slot
+  // q % raw_stages, one box per tile (the box's columns past the split are masked
+  // below, past N and past x's rows the copy writes zeros).
+  auto issue = [&](int q) {
+    const uint32_t bar = smem_addr(full + q % raw_stages<T>());
+    const uint32_t dst = smem_addr(raw + (q % raw_stages<T>()) * raw_stage<T>());
+    mbar_expect_tx(bar, (diag ? 1 : 2) * raw_box<T>());
+    tma_box(dst, &map, n0 + q * kGK, rows.first(ti), bar);
+    if (!diag) tma_box(dst + raw_box<T>(), &map, n0 + q * kGK, rows.first(tj), bar);
+  };
+
+  if constexpr (kTma) {
+    if (tid == 0)
+      for (int q = 0; q < raw_stages<T>(); ++q) mbar_init(smem_addr(full + q), 1);
+    __syncthreads();
+    if (tid == 0)
+      for (int q = 0; q < raw_stages<T>() && q < slices; ++q) issue(q);
+  }
+
+  // Every thread: wait for slice q and centre and split it into plane buffer
+  // buf (A planes, then B's), hi and lo per tile.
+  auto centre = [&](int q, int buf) {
+    const int k0 = n0 + q * kGK, live = n1 - k0;
+    const unsigned char* slot = raw + (q % raw_stages<T>()) * raw_stage<T>();
+    if constexpr (kTma) mbar_wait(smem_addr(full + q % raw_stages<T>()), (q / raw_stages<T>()) & 1);
 #pragma unroll
-    for (int which = 0; which < 2; ++which) {
-      if (which == 1 && diag) break;
-      const int c0 = (which == 0 ? ti : tj) * kGT;
-      T* dst = stage[buf][which];
-      if constexpr (kAsync) {
-        const uint32_t base = wct::smem_addr(dst);
+    for (int u = 0; u < 2; ++u) {
+      if (u == 1 && diag) break;
+      float v[16];
+      if constexpr (kTma) {
+        const unsigned char* box = slot + u * raw_box<T>();
 #pragma unroll
-        for (int i = tid; i < kGT * kRowChunks; i += kTileThreads) {
-          const int r = i / kRowChunks, q = i % kRowChunks;
-          const int c = c0 + r, n = k0 + q * kEl;
-          const bool ok = c < C && n < n1;
-          const T* src = ok ? xb + (size_t)c * N + n : xb;
-          wct::cp_async16(base + (r * P + q * kEl) * sizeof(T), src, ok ? 16 : 0);
+        for (int c8 = 0; c8 < 2; ++c8) {
+          float w[8];
+          if constexpr (sizeof(T) == 4) {
+            const float4 a = *reinterpret_cast<const float4*>(box + raw_at<T>(cr, 4 * ch + 2 * c8));
+            const float4 b = *reinterpret_cast<const float4*>(box + raw_at<T>(cr, 4 * ch + 2 * c8 + 1));
+            w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+            w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
+          } else {
+            const uint4 a = *reinterpret_cast<const uint4*>(box + raw_at<T>(cr, 2 * ch + c8));
+            const uint32_t ww[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i) w[2 * i] = wct::bf16_lo(ww[i]), w[2 * i + 1] = wct::bf16_hi(ww[i]);
+          }
+#pragma unroll
+          for (int e = 0; e < 8; ++e) v[8 * c8 + e] = w[e];
         }
       } else {
-        for (int i = tid; i < kGT * kGK; i += kTileThreads) {
-          const int r = i / kGK, k = i % kGK;
-          const int c = c0 + r, n = k0 + k;
-          dst[r * P + k] = c < C && n < n1 ? xb[(size_t)c * N + n] : T(0.f);
+#pragma unroll
+        for (int e = 0; e < 16; ++e) {
+          const int k = 16 * ch + e;
+          v[e] = src[u] != nullptr && k < live ? load_f32(src[u] + k0 + k) : 0.f;
         }
+      }
+      float* plane = planes + buf * (kPlanes / 4) + u * 4096;
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        float4 hi, lo;
+        float* h = &hi.x;
+        float* l = &lo.x;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 16 * ch + 4 * cc + e;
+          const float c = src[u] != nullptr && k < live ? v[4 * cc + e] - mu[u] : 0.f;
+          const uint32_t hb = round_tf32(c);
+          h[e] = __uint_as_float(hb);
+          l[e] = __uint_as_float(round_tf32(c - __uint_as_float(hb)));
+        }
+        const int at = plane_at(cr, 4 * ch + cc);
+        *reinterpret_cast<float4*>(plane + at) = hi;
+        *reinterpret_cast<float4*>(plane + 2048 + at) = lo;
+      }
+    }
+    wct::fence_proxy_async();  // the planes' generic writes before wgmma's reads
+  };
+  // Thread 0, after the barrier that follows slice q's centring: its slot
+  // takes slice q + raw_stages<T>().
+  auto refill = [&](int q) {
+    if constexpr (kTma) {
+      if (tid == 0 && q + raw_stages<T>() < slices) {
+        wct::fence_proxy_async();  // the slot's generic reads before the copy's writes
+        issue(q + raw_stages<T>());
       }
     }
   };
 
-  float tot[2][4][4] = {}, comp[2][4][4] = {};
-  const int steps = (n1 - n0 + kGK - 1) / kGK;
-  fill(0, n0);
-  if constexpr (kAsync) wct::cp_async_commit();
-  for (int st = 0; st < steps; ++st) {
-    const int k0 = n0 + st * kGK, buf = st & 1;
-    if (st + 1 < steps) fill(buf ^ 1, k0 + kGK);
-    if constexpr (kAsync) {
-      wct::cp_async_commit();
-      wct::cp_async_wait<1>();
-    }
-    __syncthreads();
-    const T* as = stage[buf][0];
-    const T* bs = stage[buf][diag ? 0 : 1];
-    const int live = n1 - k0;  // columns of this stage inside the split
+  // While slice q's wgmma's run on one plane buffer, slice q + 1 is centred
+  // into the other.
+  constexpr int kGroups = kGK / 8 / kFoldSteps;
+  float acc[32], comp[32];
 #pragma unroll
-    for (int k = 0; k < kGK; k += 8) {
-      if (below) break;
-      const bool ok0 = k + t < live, ok1 = k + t + 4 < live;
-      uint32_t bh[4][2], bl[4][2];
+  for (int i = 0; i < 32; ++i) acc[i] = comp[i] = 0.f;
+  centre(0, 0);
+  __syncthreads();
+  refill(0);
+  for (int q = 0; q < slices; ++q) {
+    const uint32_t pa = smem_addr(planes) + (q & 1) * kPlanes, pb = pa + (diag ? 0 : 16384);
+    float part[kGroups][32];
+    wct::wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < 4; ++n) {
-        const T* p = bs + (wc + 8 * n + g) * P + k + t;
-        wct::split_tf32(ok0 ? to_f32(p[0]) - mu_b[n] : 0.f, bh[n][0], bl[n][0]);
-        wct::split_tf32(ok1 ? to_f32(p[4]) - mu_b[n] : 0.f, bh[n][1], bl[n][1]);
+    for (int g = 0; g < kGroups; ++g) {
+#pragma unroll
+      for (int j = g * kFoldSteps; j < (g + 1) * kFoldSteps; ++j) {
+        const int first = j > g * kFoldSteps;
+        wct::wgmma_tf32_ss(part[g], desc_sw128(pa + 8192 + 32 * j), desc_sw128(pb + 32 * j), first);
+        wct::wgmma_tf32_ss(part[g], desc_sw128(pa + 32 * j), desc_sw128(pb + 8192 + 32 * j), 1);
+        wct::wgmma_tf32_ss(part[g], desc_sw128(pa + 32 * j), desc_sw128(pb + 32 * j), 1);
       }
-#pragma unroll
-      for (int m = 0; m < 2; ++m) {
-        const T* p = as + (wr + 16 * m + g) * P + k + t;
-        uint32_t ah[4], al[4];
-        wct::split_tf32(ok0 ? to_f32(p[0]) - mu_a[m][0] : 0.f, ah[0], al[0]);
-        wct::split_tf32(ok0 ? to_f32(p[8 * P]) - mu_a[m][1] : 0.f, ah[1], al[1]);
-        wct::split_tf32(ok1 ? to_f32(p[4]) - mu_a[m][0] : 0.f, ah[2], al[2]);
-        wct::split_tf32(ok1 ? to_f32(p[8 * P + 4]) - mu_a[m][1] : 0.f, ah[3], al[3]);
-        float part[4][4];
-        wct::mma_3xtf32<4>(part, ah, al, bh, bl);
-#pragma unroll
-        for (int n = 0; n < 4; ++n)
-#pragma unroll
-          for (int r = 0; r < 4; ++r) add_compensated(tot[m][n][r], comp[m][n][r], part[n][r]);
-      }
+      wct::wgmma_commit();
     }
-    __syncthreads();  // the next stage's copy reuses this buffer
+    if (q + 1 < slices) {
+      centre(q + 1, (q + 1) & 1);
+      __syncthreads();  // slice q + 1 centred: its slot is free
+      refill(q + 1);
+    }
+    wct::wgmma_wait<0>();
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g) {
+      wct::fence_regs(part[g]);
+#pragma unroll
+      for (int i = 0; i < 32; ++i) add_compensated(acc[i], comp[i], part[g][i]);
+    }
+    __syncthreads();  // slice q's planes read by every warp
+  }
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] -= comp[i];
+
+  const int pairs = gridDim.y, job = blockIdx.z * pairs + blockIdx.y;
+  if (S > 1) {
+    // Partial s goes to slot s; the last block of group s / kGroupSplits to
+    // finish sums the group's slots in order into the group's first slot,
+    // and the last group to finish sums those in order.
+    float* wp = work + static_cast<size_t>(job) * S * 4096;
+    int* cnt = counters + job * (groups_of(S) + 1);
+    const int grp = s / kGroupSplits, g0 = grp * kGroupSplits, gn = min(kGroupSplits, S - g0);
+    auto slot = [&](int k, int i) { return wp + (static_cast<size_t>(k) * 32 + i) * 128 + tid; };
+    auto last_in = [&](int* counter, int n) {
+      __threadfence();
+      __syncthreads();
+      if (tid == 0) s_last = atomicAdd(counter, 1) == n - 1;
+      __syncthreads();
+      __threadfence();
+      return s_last != 0;
+    };
+    auto sum_slots = [&](int k0, int n, int step) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] = comp[i] = 0.f;
+      for (int k = 0; k < n; ++k)
+#pragma unroll
+        for (int i = 0; i < 32; ++i) add_compensated(acc[i], comp[i], __ldcg(slot(k0 + k * step, i)));
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[i] -= comp[i];
+    };
+#pragma unroll
+    for (int i = 0; i < 32; ++i) __stcg(slot(s, i), acc[i]);
+    if (!last_in(cnt + grp, gn)) return;
+    sum_slots(g0, gn, 1);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) __stcg(slot(g0, i), acc[i]);
+    if (!last_in(cnt + groups_of(S), groups_of(S))) return;
+    sum_slots(0, groups_of(S), kGroupSplits);
   }
 
-  float* wb = work + ((size_t)b * S + s) * C * C;
+  // D fragment: warp w, lane (g, t) holds rows 16 w + g + 8 h, columns
+  // 8 nt + 2 t + e at acc[4 nt + 2 h + e].
+  const int g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int m = 0; m < 2; ++m)
-#pragma unroll
-    for (int n = 0; n < 4; ++n)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int i = ti * kGT + wr + 16 * m + g + 8 * (r >> 1);
-        const int j = tj * kGT + wc + 8 * n + 2 * t + (r & 1);
-        if (i < C && j < C && !below) wb[(size_t)i * C + j] = tot[m][n][r] - comp[m][n][r];
-      }
+  for (int i = 0; i < 32; ++i) {
+    const int r = 16 * warp + g + 8 * ((i >> 1) & 1), c = 8 * (i >> 2) + 2 * t + (i & 1);
+    if (!rows.valid(ti, r) || !rows.valid(tj, c)) continue;
+    if (packed && r / C != c / C) continue;  // another image's block
+    const int ci = rows.channel(ti, r), cj = rows.channel(tj, c);
+    if (ci > cj) continue;
+    float* gb = gram + static_cast<size_t>(rows.image(r)) * C * C;
+    gb[static_cast<size_t>(ci) * C + cj] = acc[i];
+    gb[static_cast<size_t>(cj) * C + ci] = acc[i];
+  }
 }
 
-// work [B, S, C, C] -> gram [B, C, C]; grid (ceil(C * C / 256), B). Entry
-// i <= j sums its S partials and lands in (i, j) and (j, i).
-__global__ void __launch_bounds__(kGramThreads)
-gram_reduce_kernel(const float* __restrict__ work, float* __restrict__ gram, int C, int S) {
-  const int idx = blockIdx.x * kGramThreads + threadIdx.x;
-  const int i = idx / C, j = idx % C;
-  if (i >= C || i > j) return;
-  const size_t CC = (size_t)C * C;
-  const float* p = work + (size_t)blockIdx.y * S * CC + idx;
-  float s = 0.f, comp = 0.f;
-  for (int k = 0; k < S; ++k) add_compensated(s, comp, __ldg(p + (size_t)k * CC));
-  float* gb = gram + (size_t)blockIdx.y * CC;
-  gb[(size_t)i * C + j] = s;
-  gb[(size_t)j * C + i] = s;
+// The tile pairs and image groups of launch 2, from C and B.
+struct Plan {
+  int packed, pairs, groups;
+};
+
+Plan plan(int B, int C) {
+  if (C <= 32) {
+    const int per = kGT / C;
+    return {1, 1, (B + per - 1) / per};
+  }
+  const int tiles = (C + kGT - 1) / kGT;
+  return {0, tiles * (tiles + 1) / 2, B};
+}
+
+// x as a [rows, N] tensor map in boxes of 64 rows x 32 columns, swizzled as
+// raw_at reads them; cuTensorMapEncodeTiled through the runtime's entry
+// point, so the library is built without -lcuda.
+template <typename T>
+cudaError_t encode_map(CUtensorMap* map, const T* x, int rows, int N) {
+  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
+  if (encode == nullptr) {
+    cudaDriverEntryPointQueryResult status;
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &status);
+    if (err != cudaSuccess) return err;
+    if (status != cudaDriverEntryPointSuccess || encode == nullptr) return cudaErrorNotSupported;
+  }
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * sizeof(T)};
+  const cuuint32_t box[2] = {kGK, kGT}, unit[2] = {1, 1};
+  const CUresult r = encode(
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+      const_cast<T*>(x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      sizeof(T) == 4 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 template <typename T>
-int launch_gram(const T* x, float* mean, float* gram, float* work, int B, int C, int N,
-                int split, cudaStream_t stream) {
-  const int S = (N + split - 1) / split;
-  const int tiles = (C + kGT - 1) / kGT;
-  const dim3 grid(tiles * (tiles + 1) / 2, S, B);
-  const bool aligned = N % (16 / (int)sizeof(T)) == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  mean_kernel<T><<<dim3(C, B), kGramThreads, 0, stream>>>(x, mean, N);
-  if (aligned) {
-    gram_partial_kernel<T, true><<<grid, kTileThreads, 0, stream>>>(x, mean, work, C, N, split);
+int launch_gram(const T* x, float* mean, float* gram, float* work, int B, int C, int N, int split,
+                cudaStream_t stream) {
+  const Plan p = plan(B, C);
+  const int S = (N + split - 1) / split, jobs = p.pairs * p.groups;
+  int* counters = reinterpret_cast<int*>(work + static_cast<size_t>(S > 1 ? S : 0) * jobs * 4096);
+  const int n_counters = S > 1 ? jobs * (groups_of(S) + 1) : 0;
+  const bool aligned = reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  mean_kernel<T><<<B * C, kMeanThreads, 0, stream>>>(x, mean, counters, n_counters, N,
+                                                     aligned && N % 8 == 0);
+  const dim3 grid(S, p.pairs, p.groups);
+  CUtensorMap map = {};
+  if (aligned && N % (16 / static_cast<int>(sizeof(T))) == 0) {
+    const cudaError_t err = encode_map(&map, x, B * C, N);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    constexpr int smem = 1024 + 2 * kPlanes + raw_stages<T>() * raw_stage<T>();
+    auto kernel = gram_kernel<T, true>;
+    const cudaError_t e2 =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
+    kernel<<<grid, kGramThreads, smem, stream>>>(map, x, mean, gram, work, counters, B, C, N,
+                                                 split, p.packed);
   } else {
-    gram_partial_kernel<T, false><<<grid, kTileThreads, 0, stream>>>(x, mean, work, C, N, split);
+    constexpr int smem = 1024 + 2 * kPlanes;
+    auto kernel = gram_kernel<T, false>;
+    const cudaError_t e2 =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e2 != cudaSuccess) return static_cast<int>(e2);
+    gram_kernel<T, false><<<grid, kGramThreads, smem, stream>>>(map, x, mean, gram, work, counters,
+                                                                B, C, N, split, p.packed);
   }
-  gram_reduce_kernel<<<dim3((C * C + kGramThreads - 1) / kGramThreads, B), kGramThreads, 0,
-                       stream>>>(work, gram, C, S);
-  return (int)cudaGetLastError();
+  return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace wct
+}  // namespace
+
+// Floats of device workspace for x [B, C, N] in splits of `split` columns:
+// with more than one split, each tile's partials per split and its counters
+// (one per group of kGroupSplits splits, one over the groups); else none.
+extern "C" long long centered_gram_workspace_floats(int B, int C, int N, int split) {
+  if (B <= 0 || C <= 0 || N <= 0 || split <= 0) return -1;
+  const Plan p = plan(B, C);
+  const long long S = (N + split - 1) / split, jobs = static_cast<long long>(p.pairs) * p.groups;
+  return S > 1 ? S * jobs * 4096 + jobs * (groups_of(static_cast<int>(S)) + 1) : 0;
+}
 
 // x [B, C, N] f32 (is_bf16 = 0) or bf16 (1), contiguous -> mean [B, C],
-// gram [B, C, C], both f32. work holds B * ceil(N / split) * C * C floats;
-// split is a multiple of 32. Returns the CUDA error of the launches.
+// gram [B, C, C], both f32. work holds centered_gram_workspace_floats(B, C,
+// N, split) floats; split is a multiple of 32. Returns the CUDA error of the
+// launches.
 extern "C" int centered_gram_cn(const void* x, int is_bf16, float* mean, float* gram,
                                 float* work, int B, int C, int N, int split, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
   if (is_bf16)
-    return wct::launch_gram(static_cast<const __nv_bfloat16*>(x), mean, gram, work, B, C, N,
-                            split, s);
-  return wct::launch_gram(static_cast<const float*>(x), mean, gram, work, B, C, N, split, s);
+    return launch_gram(static_cast<const __nv_bfloat16*>(x), mean, gram, work, B, C, N, split, s);
+  return launch_gram(static_cast<const float*>(x), mean, gram, work, B, C, N, split, s);
 }

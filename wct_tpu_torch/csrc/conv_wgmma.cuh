@@ -1,8 +1,10 @@
 // Hopper's pieces for the tensor-core stages of junction.cu: wgmma with A
 // from registers, the weights' 128-byte-swizzled layout in shared memory, and
 // a ring of weight slots filled by bulk copies that complete on mbarriers.
-// encoder_head.cu stays on conv_tc.cuh's mma.sync stages; a later kernel can
-// take these as they are.
+// encoder_head.cu stays on conv_tc.cuh's mma.sync stages. ns_sqrtm.cu and
+// centered_gram.cu take the tf32 product in its SS form (wgmma_tf32_ss: A
+// from shared memory too, through the same descriptor), with the same
+// partials and folds.
 //
 // wgmma, RS form. A warpgroup (4 warps, 128 threads) issues
 // wgmma.mma_async.m64n64k{16 bf16, 8 tf32}: D [64 x 64] f32 += A [64 x K] .
@@ -153,6 +155,24 @@ __device__ __forceinline__ void wgmma_tf32(float (&d)[32], const uint32_t (&a)[4
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
 }
 
+
+// d = (scale_d ? d : 0) + A . B, tf32 operands, K = 8, both from shared memory:
+// A [64 x 8] and B [64 x 8] K-major, each through a desc_sw128 descriptor.
+__device__ __forceinline__ void wgmma_tf32_ss(float (&d)[32], uint64_t adesc, uint64_t bdesc,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 " WCT_D32
+      ", %32, %33, p, 1, 1;\n}\n"
+      : WCT_D32_OUT(d)
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+
+// Order this thread's earlier generic-proxy accesses of global memory before
+// later asynchronous-proxy ones (bulk copies reading what it wrote).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
 
 __device__ __forceinline__ void fold(float (&acc)[32], float (&part)[32]) {
   fence_regs(part);

@@ -6,8 +6,8 @@ Counterpart of ``wct_tpu/ops/gram_pallas.py``. For a feature matrix
 ``ops.wct._gram`` does). The kernel reads ``x`` twice, never writes a
 centred copy, computes only the tiles on and above the diagonal and
 mirrors them (the Gram is exactly symmetric), and adds its partial sums
-in a fixed order without atomics, so an image's result is the same bits
-alone and in any batch.
+in a fixed order (atomics only count the blocks that have finished), so
+an image's result is the same bits alone and in any batch.
 
 - ``centered_gram(x [N, C]) → (gram [C, C], mean [C])`` keeps the JAX
   package's signature and return order.
@@ -37,10 +37,17 @@ import torch
 
 from wct_tpu_torch.ops import _build, reductions
 
-# Columns of x per partial sum: at 512 px every level gives 36 to 256
-# blocks per image (tiles on and above the diagonal × splits). The number of partials depends on N alone, never on
-# the batch, so the summation order is the image's own.
+# Columns of x per split of the sum over N: 1,024, or the multiple of 1,024
+# that keeps a tile to at most MAX_SPLITS partials (a 1280 x 720 frame's
+# relu1_1, N = 921,600: 225 splits of 4,096). It depends on N alone, never
+# on the batch, so the summation order is the image's own.
 SPLIT = 1024
+MAX_SPLITS = 256
+
+
+def split_columns(n: int) -> int:
+    """Columns per split for a map of ``n`` columns."""
+    return SPLIT * -(-n // (SPLIT * MAX_SPLITS))
 
 
 def _centered_gram_plain(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -69,17 +76,19 @@ def centered_gram_cuda(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     if not x.is_contiguous():
         raise ValueError(f"{name} needs a contiguous tensor")
     b, c, n = x.shape
-    n_splits = -(-n // SPLIT)
-    if b > 65535 or n_splits > 65535:
-        raise ValueError(f"{name} takes at most 65535 images and {65535 * SPLIT} columns")
+    if b > 65535 or c > 16384 or n >= 2**31 // 2:
+        raise ValueError(f"{name} takes at most 65535 images, 16384 channels and 2^30 columns")
+    split = split_columns(n)
+    ptr, integer = ctypes.c_void_p, ctypes.c_int
+    workspace_floats = _build.load("centered_gram").centered_gram_workspace_floats
+    workspace_floats.argtypes, workspace_floats.restype = [integer] * 4, ctypes.c_longlong
     mean = torch.empty((b, c), dtype=torch.float32, device=x.device)
     gram = torch.empty((b, c, c), dtype=torch.float32, device=x.device)
-    work = torch.empty((b, n_splits, c, c), dtype=torch.float32, device=x.device)
-    ptr, integer = ctypes.c_void_p, ctypes.c_int
+    work = torch.empty(workspace_floats(b, c, n, split), dtype=torch.float32, device=x.device)
     _build.launch(name, "centered_gram", "centered_gram_cn",
                   [ptr, integer, ptr, ptr, ptr] + [integer] * 4,
                   (x.data_ptr(), int(x.dtype == torch.bfloat16), mean.data_ptr(),
-                   gram.data_ptr(), work.data_ptr(), b, c, n, SPLIT), x.device)
+                   gram.data_ptr(), work.data_ptr(), b, c, n, split), x.device)
     centered_gram_cuda.launches += 1
     return gram, mean
 

@@ -18,10 +18,12 @@ Two versions compute it on a batch ``cov [B, C, C]``:
   see ``_PRECISIONS``; ``product`` lets ``tools/profile_sqrtm.py`` time
   the candidates), and the reference the CUDA kernel is held against.
 - ``ns_sqrtm_cuda``: the hand-written kernel ``csrc/ns_sqrtm.cu``, which
-  replaces the TPU kernel ``_sqrtm_pallas``: 3xTF32 tensor-core products,
-  one launch with Y, Z and T in shared memory for C <= 128, a tiled
-  product per step above. The design, its bound, the padded edge and the
-  workspace it needs are in the source.
+  replaces the TPU kernel ``_sqrtm_pallas``: 3xTF32 products, on
+  ``wgmma`` from operands split once into packed hi/lo forms for
+  C > 64 (one launch per call on a cluster of eight blocks up to 128, a
+  launch per step's products above), on ``mma.sync`` with the matrices
+  resident in one block's shared memory for C <= 64. The design, its
+  bound, the padded edge and the workspace it needs are in the source.
 
 ``newton_schulz_sqrtm(..., use_kernel=True)`` takes the kernel for a
 CUDA tensor and the plain version only for a CPU tensor; there is no

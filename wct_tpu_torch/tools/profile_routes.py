@@ -1,4 +1,4 @@
-"""Time the four cascade routes per 512-px frame on the card, in turns.
+"""Time the five cascade routes per 512-px frame on the card, in turns.
 
     python -m wct_tpu_torch.tools.profile_routes [--rounds 3] [--label this]
 
@@ -8,8 +8,9 @@ seeded style on the trained bundle, for the f32 unfused route
 the bf16 throughput one (``compute_dtype="bfloat16",
 method="newton_schulz_fast", compose_conv0=True``) and the bf16 fused one
 (``compute_dtype="bfloat16", method="newton_schulz_fast",
-fuse_junction=True``), in the order f32, fused, bf16, bf16_fused, then
-back, for ``--rounds`` rounds: each timing is 5 calls
+fuse_junction=True``) and that one with AdaIN (``transform="adain"``,
+whose moments come from the Gram kernel), in the order f32, fused, bf16,
+bf16_fused, adain_bf16_fused, then back, for ``--rounds`` rounds: each timing is 5 calls
 after 2 of warm-up (CUDA events), divided by the batch. Prints the card's
 name and power limit, one JSON line per timing, and a summary with each
 route's mean, minimum and maximum.
@@ -42,6 +43,8 @@ ROUTES = {
     "fused": dict(method="newton_schulz_pallas", fuse_junction=True),
     "bf16": dict(compute_dtype="bfloat16", method="newton_schulz_fast", compose_conv0=True),
     "bf16_fused": dict(compute_dtype="bfloat16", method="newton_schulz_fast", fuse_junction=True),
+    "adain_bf16_fused": dict(compute_dtype="bfloat16", method="newton_schulz_fast",
+                             fuse_junction=True, transform="adain"),
 }
 
 
