@@ -6,8 +6,9 @@
 Run from the root of a checkout on a machine with an NVIDIA H100. It
 builds every CUDA kernel of the port from ``wct_tpu_torch/csrc``, holds
 each against its plain PyTorch version at the main path's shapes (and
-at awkward ones), splits the junction's time per stage and checks that
-its SASS holds HGMMA (``junction_stages``),
+at awkward ones), checks that the head's SASS holds HGMMA, splits the
+junction's time per stage and checks that its SASS holds HGMMA
+(``junction_stages``),
 runs the five-level relu5_1 → relu1_1 cascade at
 512 px on the trained ``weights/bundle.npz`` through
 ``precompute_style`` and ``stylize_microbatched`` five times: unfused
@@ -709,6 +710,8 @@ def phase_junction_kernels(params, content, cache, cfg, name, dtypes=(torch.floa
             "library_ms": None if None in lib else sum(lib),
         }
 
+    if main:  # conv1_2 of the head runs on wgmma in both forms
+        check_hgmma("encoder_head", ("encoder_head",), phase)
     return {k: line(k) for n in BY_DTYPE for k in (n, f"{n}_bf16")
             if any(r["kernel"] == k and r["main_path"] for r in rows)}
 
@@ -2968,13 +2971,14 @@ def main() -> int:
     phase_mesh_cli()
     small = "wct_tpu_torch/csrc/conv3x3_small.cu"
     head = ("wct_tpu_torch/csrc/encoder_head.cu", "wct_tpu/ops/junction_pallas.py:368")
+    tail = ("wct_tpu_torch/csrc/decoder_tail.cu", "wct_tpu/ops/junction_pallas.py:467")
     junc = ("wct_tpu_torch/csrc/junction.cu", "wct_tpu/ops/junction_pallas.py:530")
     meta = {
         "ns_sqrtm": ("wct_tpu_torch/csrc/ns_sqrtm.cu", "wct_tpu/ops/sqrtm.py:169"),
         "encoder_head": head,
         "encoder_head_bf16": head,
-        "decoder_tail": ("wct_tpu_torch/csrc/decoder_tail.cu", "wct_tpu/ops/junction_pallas.py:467"),
-        "decoder_tail_bf16": (small, "wct_tpu/ops/junction_pallas.py:467"),
+        "decoder_tail": tail,
+        "decoder_tail_bf16": tail,
         "junction": junc,
         "junction_bf16": junc,
         "conv3x3_small": (small, "wct_tpu/ops/conv_pallas.py:144, scripts/exp_nchw_conv.py:158"),

@@ -286,16 +286,21 @@ def test_tf32_rounds_to_nearest_ties_away():
 
 
 def test_tc_frags_layout():
-    """``[tap][k-step][n-tile][lane][hi0, hi1, lo0, lo1]``: lane 4g + t of
-    n-tile nt at k-step ks holds w[8nt + g, 8ks + t (+4), tap]."""
-    w = torch.from_numpy(np.random.default_rng(1).standard_normal((64, 64, 3, 3)).astype(np.float32))
-    f = tjunction._tc_frags(w)
-    assert f.shape == (9, 8, 8, 8, 4, 4) and f.is_contiguous()
-    f = f.reshape(9, 8, 8, 32, 4)
-    tap, ks, nt, g, t = 5, 3, 6, 2, 1
-    lane = 4 * g + t
-    for j in range(2):
-        v = w[8 * nt + g, 8 * ks + t + 4 * j, tap // 3, tap % 3]
-        hi, lo = f[tap, ks, nt, lane, j], f[tap, ks, nt, lane, 2 + j]
+    """The f32 head's tensor-core operand (``_head_weights``): conv1_2 in the
+    ``wgmma`` layout ``[tap][half][hi, lo][64 rows × 32]``, the 16-byte
+    chunk ``k // 4`` of row ``co`` stored at chunk ``(k // 4) ^ (co % 8)``,
+    holding hi = tf32(w[co, 32·half + k, tap]) and lo = tf32(w − hi);
+    conv1_1 as ``[ci][tap][co]`` taps for the FFMA stage."""
+    rng = np.random.default_rng(1)
+    w = torch.from_numpy(rng.standard_normal((64, 64, 3, 3)).astype(np.float32))
+    we1 = torch.from_numpy(rng.standard_normal((64, 3, 3, 3)).astype(np.float32))
+    t1, c1, t2, c2 = tjunction._head_weights(we1, torch.zeros(64), w, torch.ones(64),
+                                             torch.float32)
+    assert t1.shape == (3, 9, 64) and torch.equal(t1[2, 7, 5], we1[5, 2, 7 // 3, 7 % 3])
+    assert t2.shape == (9, 2, 2, 2048) and t2.is_contiguous() and torch.equal(c2, torch.ones(64))
+    for tap, half, co, k in [(5, 1, 13, 22), (0, 0, 0, 0), (8, 1, 63, 31)]:
+        v = w[co, 32 * half + k, tap // 3, tap % 3]
+        idx = co * 32 + ((k // 4) ^ (co % 8)) * 4 + k % 4
+        hi, lo = t2[tap, half, 0, idx], t2[tap, half, 1, idx]
         assert float(hi) == float(tjunction._tf32(v.reshape(1))[0])
         assert abs(float(hi + lo - v)) <= 2.0**-21 * abs(float(v))

@@ -232,29 +232,23 @@ def test_junction_bf16(bundle, deep, clip):
 
 
 def test_weight_preparation_bf16():
-    """``_taps`` rounds to bf16 and keeps f32; ``_tc_frags_bf16`` puts
-    ``w[8nt + g, 16ks + 2t + 8r + e, tap]`` at ``[tap, ks, nt // 2, 4g + t,
-    nt % 2, 2r + e]``; ``_tail_taps_bf16`` stacks the small conv's layout."""
-    from wct_tpu_torch.ops import conv_small
-
+    """``_taps`` rounds to bf16 and keeps f32; the bf16 head's weights
+    (``_head_weights``) are conv1_1's ``mma.sync`` fragments and conv1_2 in
+    the ``wgmma`` layout, ``w[co, k, tap]`` rounded to bf16 at
+    ``[tap, co·64 + ((k // 8) ^ (co % 8))·8 + k % 8]``."""
     rng = np.random.default_rng(1)
     w = torch.from_numpy(rng.standard_normal((64, 64, 3, 3)).astype(np.float32))
     taps = tjunction._taps(w, dtype=torch.bfloat16)
     assert taps.dtype == torch.float32 and taps.shape == (64, 9, 64)
     assert torch.equal(taps, tjunction._taps(w.to(torch.bfloat16).float()))
-    f = tjunction._tc_frags_bf16(w)
-    assert f.dtype == torch.bfloat16 and f.shape == (9, 4, 4, 32, 2, 4) and f.is_contiguous()
-    for tap, ks, nt, g, t, r, e in [(5, 3, 6, 2, 1, 1, 0), (0, 0, 0, 0, 0, 0, 0), (8, 2, 7, 7, 3, 1, 1)]:
-        got = f[tap, ks, nt // 2, 4 * g + t, nt % 2, 2 * r + e]
-        want = w[8 * nt + g, 16 * ks + 2 * t + 8 * r + e, tap // 3, tap % 3].to(torch.bfloat16)
-        assert torch.equal(got, want)
-    wt = torch.from_numpy(rng.standard_normal((2, 3, 64, 3, 3)).astype(np.float32))
-    bt = torch.from_numpy(rng.standard_normal((2, 3)).astype(np.float32))
-    taps, bias = tjunction._tail_taps_bf16(wt, bt)
-    assert taps.shape == (2, 72, 8, 8) and bias.shape == (2, 8)
-    for i in range(2):
-        one_t, one_b = conv_small._taps(wt[i], bt[i])
-        assert torch.equal(taps[i], one_t) and torch.equal(bias[i], one_b)
+    we1 = torch.from_numpy(rng.standard_normal((64, 3, 3, 3)).astype(np.float32) * 20)
+    t1, c1, t2, c2 = tjunction._head_weights(we1, torch.ones(64), w, torch.zeros(64), torch.bfloat16)
+    assert torch.equal(t1, tjunction._e1_frags_bf16(we1)) and c1.dtype == torch.float32
+    assert t2.dtype == torch.bfloat16 and t2.shape == (9, 4096) and t2.is_contiguous()
+    for tap, co, k in [(5, 13, 22), (0, 0, 0), (8, 63, 63)]:
+        idx = co * 64 + ((k // 8) ^ (co % 8)) * 8 + k % 8
+        assert torch.equal(t2[tap, idx], w[co, k, tap // 3, tap % 3].to(torch.bfloat16))
+
 
 
 @pytest.mark.parametrize("dtype", [torch.float16, torch.float64])

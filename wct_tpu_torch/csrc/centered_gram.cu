@@ -63,15 +63,12 @@
 // depend on C and the splits on N alone, so an image's result is the same
 // bits alone and in any batch: the TPU kernel's reason to exist.
 
-#include <cuda.h>
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cudaTypedefs.h>
 
 #include <cstdint>
 
 #include "conv_wgmma.cuh"
+#include "tma.cuh"
 
 namespace {
 
@@ -119,17 +116,6 @@ template <typename T>
 __device__ __forceinline__ int raw_at(int r, int c) {
   if constexpr (sizeof(T) == 4) return r * 128 + ((c ^ (r & 7)) << 4);
   return r * 64 + ((c ^ ((r >> 1) & 3)) << 4);
-}
-
-// A 64 x 32 box of the tensor map at column c0, row c1, into shared memory at
-// dst (1 KB-aligned), completing on bar.
-__device__ __forceinline__ void tma_box(uint32_t dst, const CUtensorMap* map, int c0, int c1,
-                                        uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, "
-      "%3}], [%4];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
 }
 
 // sum += v with the rounding error of the add carried in comp (Kahan); the
@@ -275,8 +261,8 @@ gram_kernel(const __grid_constant__ CUtensorMap map, const T* __restrict__ x,
     const uint32_t bar = smem_addr(full + q % raw_stages<T>());
     const uint32_t dst = smem_addr(raw + (q % raw_stages<T>()) * raw_stage<T>());
     mbar_expect_tx(bar, (diag ? 1 : 2) * raw_box<T>());
-    tma_box(dst, &map, n0 + q * kGK, rows.first(ti), bar);
-    if (!diag) tma_box(dst + raw_box<T>(), &map, n0 + q * kGK, rows.first(tj), bar);
+    wct::tma_load_2d(dst, &map, n0 + q * kGK, rows.first(ti), bar);
+    if (!diag) wct::tma_load_2d(dst + raw_box<T>(), &map, n0 + q * kGK, rows.first(tj), bar);
   };
 
   if constexpr (kTma) {
@@ -463,27 +449,13 @@ Plan plan(int B, int C) {
 }
 
 // x as a [rows, N] tensor map in boxes of 64 rows x 32 columns, swizzled as
-// raw_at reads them; cuTensorMapEncodeTiled through the runtime's entry
-// point, so the library is built without -lcuda.
+// raw_at reads them (tma.cuh).
 template <typename T>
 cudaError_t encode_map(CUtensorMap* map, const T* x, int rows, int N) {
-  static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  if (encode == nullptr) {
-    cudaDriverEntryPointQueryResult status;
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", reinterpret_cast<void**>(&encode), cudaEnableDefault, &status);
-    if (err != cudaSuccess) return err;
-    if (status != cudaDriverEntryPointSuccess || encode == nullptr) return cudaErrorNotSupported;
-  }
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(N) * sizeof(T)};
-  const cuuint32_t box[2] = {kGK, kGT}, unit[2] = {1, 1};
-  const CUresult r = encode(
-      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
-      const_cast<T*>(x), dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-      sizeof(T) == 4 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
-      CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+  return wct::encode_2d(
+      map, sizeof(T) == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      sizeof(T), x, rows, N, kGK, kGT,
+      sizeof(T) == 4 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B);
 }
 
 template <typename T>

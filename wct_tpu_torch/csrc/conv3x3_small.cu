@@ -13,15 +13,6 @@
 // with reflect(-1) = 1 and reflect(n) = n - 2, act = ReLU or the identity, every
 // product an exact bf16 x bf16 product, the sum kept in f32 and rounded once.
 //
-// Its per-image entry, decoder_tail_bf16, is also the bf16 form of
-// wct_tpu/ops/junction_pallas.py::decoder_tail (_tail_kernel): the NCHW 64->3
-// conv with weights and bias indexed by the tile's image and act = the clip
-// to [0, 1] or the identity, which is that kernel's rounding rule (the f32 form
-// is decoder_tail.cu). Its bound: 134 MB of bf16 f read and 6.3 MB written at
-// batch 4, 512 px, 0.042 ms; the products on the tensor cores (N = 3 padded to
-// 8) keep it under FFMA's 0.054 ms floor. A block reloads the weights (9 KB)
-// when its next tile belongs to another image.
-//
 // Bound on an H100: 64 -> 64 at [4, 64, 512, 512] is 7.7e10 FLOP and 268 MB,
 // 0.08 ms either way on the tensor cores (FFMA could not go below 1.15 ms);
 // 64 -> 3 and 3 -> 64 move 140 MB, 0.04 ms, bytes.
@@ -187,16 +178,13 @@ __device__ __forceinline__ void gather(const unsigned char* raw_bytes, unsigned 
   }
 }
 
-enum Act { kIdentity = 0, kRelu = 1, kClip = 2 };
+enum Act { kIdentity = 0, kRelu = 1 };
 
-// wk_image and bias_image: elements from one image's weights and bias to the
-// next (0: one set for every image).
 template <int NT, int MODE>
 __global__ void __launch_bounds__(kSmallThreads, 1)
 conv3x3_small_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ wk,
                   const float* __restrict__ bias, __nv_bfloat16* __restrict__ out, int H, int W,
-                  int cin, int cout, int act, int tiles_y, int tiles_x, int n_tiles,
-                  int wk_image, int bias_image) {
+                  int cin, int cout, int act, int tiles_y, int tiles_x, int n_tiles) {
   constexpr int kCoPad = 8 * NT;
   constexpr bool kNhwc = MODE != kRawNchw;
   extern __shared__ __align__(16) unsigned char smem[];
@@ -216,23 +204,18 @@ conv3x3_small_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     koff[kg] = (((tap / 3) * kHaloCols + tap % 3) * p.pstride + cg) * 16;
   }
   TileAt at = tile_at(t, tiles_y, tiles_x);
-  // The weights of the tile's image into shared memory (asynchronous; the
-  // caller's next wait covers them), and its bias into registers.
-  auto load_weights = [&](int image) {
+  // The weights into shared memory (asynchronous; the next wait covers them),
+  // the bias into registers.
+  {
     const uint32_t wbase = smem_addr(w_s);
-    const __nv_bfloat16* src = wk + (size_t)image * wk_image;
-    for (int i = tid; i < p.w_bytes / 16; i += kSmallThreads) cp_async16(wbase + i * 16, src + i * 8);
-  };
+    for (int i = tid; i < p.w_bytes / 16; i += kSmallThreads) cp_async16(wbase + i * 16, wk + i * 8);
+  }
   float bias_r[NT][2];
-  auto load_bias = [&](int image) {
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      bias_r[nt][0] = __ldg(bias + (size_t)image * bias_image + nt * 8 + 2 * (lane & 3));
-      bias_r[nt][1] = __ldg(bias + (size_t)image * bias_image + nt * 8 + 2 * (lane & 3) + 1);
-    }
-  };
-  load_weights(at.b);
-  load_bias(at.b);
+  for (int nt = 0; nt < NT; ++nt) {
+    bias_r[nt][0] = __ldg(bias + nt * 8 + 2 * (lane & 3));
+    bias_r[nt][1] = __ldg(bias + nt * 8 + 2 * (lane & 3) + 1);
+  }
 
   if (MODE == kDirectNhwc) {
     stage_direct(x, buf[0], p, at, H, W, cin);
@@ -306,11 +289,6 @@ conv3x3_small_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
         for (int nt = 0; nt < NT; ++nt) mma_bf16_16816(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
     }
     __syncthreads();  // every warp is done with the tile: it now stages the output
-    const bool new_image = more && wk_image != 0 && next.b != at.b;
-    if (new_image) {  // no warp reads w_s until the next tile's k-steps
-      load_weights(next.b);
-      cp_async_commit();
-    }
 
     // acc[mt][nt][2h + e]: pixel 16 mt + lane / 4 + 8 h of row `warp`,
     // channel 8 nt + 2 (lane % 4) + e.
@@ -324,7 +302,6 @@ conv3x3_small_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
           float v0 = acc[mt][nt][2 * h] + bias_r[nt][0];
           float v1 = acc[mt][nt][2 * h + 1] + bias_r[nt][1];
           if (act == kRelu) v0 = fmaxf(v0, 0.f), v1 = fmaxf(v1, 0.f);
-          if (act == kClip) v0 = fminf(fmaxf(v0, 0.f), 1.f), v1 = fminf(fmaxf(v1, 0.f), 1.f);
           const int col = mt * 16 + (lane >> 2) + 8 * h, co = nt * 8 + 2 * (lane & 3);
           if (kNhwc) {
             *reinterpret_cast<uint32_t*>(o_s + (warp * kTileCols + col) * (kCoPad + 8) + co) =
@@ -368,7 +345,6 @@ conv3x3_small_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
     } else {
       __syncthreads();  // the output is out of buf[cur] before the next prefetch lands there
     }
-    if (new_image) load_bias(next.b);
     t = tn;
     at = next;
   }
@@ -376,8 +352,7 @@ conv3x3_small_mma(const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __re
 
 template <int NT, int MODE>
 int launch_small(const void* x, const void* wk, const float* bias, void* out, int B, int H, int W,
-                 int cin, int cout, int act, cudaStream_t stream, int wk_image = 0,
-                 int bias_image = 0) {
+                 int cin, int cout, int act, cudaStream_t stream) {
   auto kernel = conv3x3_small_mma<NT, MODE>;
   const int smem = SmallPlan(cin, 8 * NT, MODE).bytes();
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -393,8 +368,7 @@ int launch_small(const void* x, const void* wk, const float* bias, void* out, in
   const int grid = n_tiles < sms * per_sm ? n_tiles : sms * per_sm;
   kernel<<<grid, kSmallThreads, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const __nv_bfloat16*>(wk), bias,
-      static_cast<__nv_bfloat16*>(out), H, W, cin, cout, act, tiles_y, tiles_x, n_tiles,
-      wk_image, bias_image);
+      static_cast<__nv_bfloat16*>(out), H, W, cin, cout, act, tiles_y, tiles_x, n_tiles);
   return (int)cudaGetLastError();
 }
 
@@ -421,17 +395,4 @@ extern "C" int conv3x3_small_bf16(const void* x, const void* wk, const float* bi
   cudaStream_t s = (cudaStream_t)stream;
   if (cout <= 8) return wct::launch_layout<1>(x, wk, bias, out, B, H, W, cin, cout, relu, nhwc, s);
   return wct::launch_layout<8>(x, wk, bias, out, B, H, W, cin, cout, relu, nhwc, s);
-}
-
-// The bf16 decoder tail: f [B, 64, H, W] bf16 (16-byte aligned) with image b's
-// weights wk + b * 72 * 8 * 8 (the layout above for cin = 64, cout = 3: 72
-// k-groups x co_pad 8 x 8) and bias + 8 b -> out [B, 3, H, W] bf16, clipped to
-// [0, 1] if `clip`. H and W multiples of 8. Returns the CUDA error of the
-// launch.
-extern "C" int decoder_tail_bf16(const void* f, const void* wk, const float* bias, void* out,
-                                 int B, int H, int W, int clip, void* stream) {
-  constexpr int kCin = 64, kCoPad = 8, kGroups = 9 * kCin / 8;
-  return wct::launch_small<1, wct::kRawNchw>(f, wk, bias, out, B, H, W, kCin, 3,
-                                             clip ? wct::kClip : wct::kIdentity,
-                                             (cudaStream_t)stream, kGroups * kCoPad * 8, kCoPad);
 }

@@ -1,10 +1,11 @@
 // Shared device code of the junction kernels (junction.cu, encoder_head.cu,
-// decoder_tail.cu, and conv_tc.cuh, which builds their tensor-core stages on
-// it): 3x3 reflect convolutions over image tiles held in shared memory, fp32
-// FFMA, planar maps.
+// and conv_tc.cuh, which builds their tensor-core stages on it;
+// decoder_tail.cu takes its constants and reflect): 3x3 reflect convolutions
+// over image tiles held in shared memory, fp32 FFMA, planar maps.
 //
-// A block owns one 16x16 tile of the full-resolution image and runs the
-// whole chain of convolutions on it, each intermediate living in shared
+// A block owns a tile of the full-resolution image (16 x 16; the head's 32
+// rows x 16) and runs the whole chain of convolutions on it, each
+// intermediate living in shared
 // memory with the halo the later stages need (stage k rows/cols of halo:
 // e1 1, rgb 2, m 3, u 4). Every conv of the chain reflect-pads ITS OWN input,
 // and a conv computed on an extended domain is not the reflection of its
@@ -85,22 +86,25 @@ __device__ __forceinline__ void conv_accumulate(
   }
 }
 
-// buf [nch][S][S] covers image rows oy..oy+S-1 and columns ox..ox+S-1. Rows
+// buf [nch][R][S] covers image rows oy..oy+R-1 and columns ox..ox+S-1. Rows
 // and columns outside the image take the value at their reflection (which lies
 // inside both the image and the region). Rows first, then columns, so corners
-// come out as the reflection in both. Starts and ends with a barrier.
-__device__ __forceinline__ void fix_halo(float* buf, int nch, int S, int oy, int ox,
+// come out as the reflection in both. A region that reaches further below the
+// image than its reflection (a tile taller than what is left of the image)
+// keeps those rows as they are: no output of the image reads them. Starts and
+// ends with a barrier.
+__device__ __forceinline__ void fix_halo(float* buf, int nch, int R, int S, int oy, int ox,
                                          int H, int W) {
   __syncthreads();
-  if (oy < 0 || oy + S > H) {
-    for (int i = threadIdx.x; i < nch * S * S; i += kThreads) {
-      const int gy = oy + (i / S) % S;
-      if (gy < 0 || gy >= H) buf[i] = buf[i + (reflect(gy, H) - gy) * S];
+  if (oy < 0 || oy + R > H) {
+    for (int i = threadIdx.x; i < nch * R * S; i += kThreads) {
+      const int gy = oy + (i / S) % R, src = reflect(gy, H);
+      if ((gy < 0 || gy >= H) && src >= max(oy, 0)) buf[i] = buf[i + (src - gy) * S];
     }
     __syncthreads();
   }
   if (ox < 0 || ox + S > W) {
-    for (int i = threadIdx.x; i < nch * S * S; i += kThreads) {
+    for (int i = threadIdx.x; i < nch * R * S; i += kThreads) {
       const int gx = ox + i % S;
       if (gx < 0 || gx >= W) buf[i] = buf[i + reflect(gx, W) - gx];
     }

@@ -1,7 +1,8 @@
-// Hopper's pieces for the tensor-core stages of junction.cu: wgmma with A
-// from registers, the weights' 128-byte-swizzled layout in shared memory, and
-// a ring of weight slots filled by bulk copies that complete on mbarriers.
-// encoder_head.cu stays on conv_tc.cuh's mma.sync stages. ns_sqrtm.cu and
+// Hopper's pieces for the tensor-core stages of junction.cu and
+// encoder_head.cu: wgmma with A from registers, the weights' 128-byte-swizzled
+// layout in shared memory, a ring of weight slots filled by bulk copies that
+// complete on mbarriers, and the encoder's conv1_2 + ReLU + 2x2 max pool built
+// on them, which both kernels run (conv1_2_pool). ns_sqrtm.cu and
 // centered_gram.cu take the tf32 product in its SS form (wgmma_tf32_ss: A
 // from shared memory too, through the same descriptor), with the same
 // partials and folds.
@@ -29,9 +30,10 @@
 // every 2 in bf16 (32 channels): bf16 partials of 64 channels flipped
 // enough roundings to fail its float64 bars (PERF.md).
 //
-// The weight ring. kS slots of 16 KB, each with a "full" mbarrier. One
-// thread arms a slot's barrier with the chunk's byte count and issues the
-// bulk copy (cp.async.bulk, global -> shared, contiguous); the consumers
+// The weight ring. kS slots (16 KB, or a bf16 chunk's 8 KB), each with a
+// "full" mbarrier. One thread arms a slot's barrier with the chunk's byte
+// count and issues the bulk copy (cp.async.bulk, global -> shared,
+// contiguous); the consumers
 // wait on the barrier's phase. There is no block barrier per chunk and no
 // producer warp: once a warpgroup's wgmma's have read a slot (wait_group
 // returned), the warpgroup meets at a named barrier and its first thread
@@ -44,7 +46,8 @@
 // grew sixfold). A producer warp would wait on those same barriers, but the
 // 256 consumer threads already hold up to 255 registers each (one block per
 // SM), so it could have none of its own without setmaxnreg, and that would
-// take named barriers in the FFMA stages shared with encoder_head.
+// take named barriers in the FFMA stages. encoder_head.cu runs the ring on
+// across its tiles, or (bf16) holds all nine taps and never refills it.
 
 #pragma once
 #include "conv_tc.cuh"
@@ -288,19 +291,32 @@ __device__ __forceinline__ void chunk_rows_tf32(float (&acc)[NRB][32], uint32_t 
 
 // ---------------------------------------------------------------- the ring
 
+// A kernel's weights in stream order: n_a chunks of a first 64->64 conv, one
+// chunk of the small stages' weights (s0, then s1; float counts multiples of
+// 4), n_b chunks of a second 64->64 conv.
+struct WeightStream {
+  const unsigned char* a;
+  int n_a;
+  const float* s0;
+  int n_s0;
+  const float* s1;
+  int n_s1;
+  const unsigned char* b;
+  int n_b;
+};
+
 // kS slots of kSlotBytes (1 KB-aligned), each with a "full" barrier (armed
 // with its bytes, completed by the bulk copy) and a count of the
-// warpgroups done with its current chunk. Stream position q lives in slot q % kS; its use of
-// the slot is the (q / kS)-th.
-template <int kS>
+// warpgroups done with its current chunk. Stream position q lives in slot q %
+// kS; its use of the slot is the (q / kS)-th.
+template <int kS, int kSlotBytes = 16384>
 struct Ring {
   unsigned char* slots;
   uint64_t* full;
   int* done;
-  static constexpr int kJSlotBytes = 16384;
 
   __device__ __forceinline__ uint32_t slot(int q) const {
-    return smem_addr(slots + (q % kS) * kJSlotBytes);
+    return smem_addr(slots + (q % kS) * kSlotBytes);
   }
 
   // Thread 0: the barriers, before any copy.
@@ -311,26 +327,31 @@ struct Ring {
     }
   }
 
-  // One thread: put stream position q of `ws` (WeightStream, conv_tc.cuh) in
-  // flight into its slot; past the stream's end, nothing. A slot that held
-  // the FFMA stages' weights was read by ordinary loads (the block's,
-  // ordered before this thread by a barrier), not by wgmma's asynchronous
-  // reads: fence those before the copy's writes.
+  // One thread: `bytes` from src into position q's slot, on its barrier.
+  __device__ __forceinline__ void copy(int q, const void* src, uint32_t bytes) const {
+    const uint32_t bar = smem_addr(full + q % kS);
+    mbar_expect_tx(bar, bytes);
+    bulk_copy(slot(q), src, bytes, bar);
+  }
+
+  // One thread: put stream position q of `ws` in flight into its slot; past
+  // the stream's end, nothing. A slot that held the small stages' weights
+  // was read by ordinary loads (the block's, ordered before this thread by a
+  // barrier), not by wgmma's asynchronous reads: fence those before the
+  // copy's writes.
   template <int kChunkBytes>
   __device__ __forceinline__ void issue(int q, const WeightStream& ws) const {
-    const uint32_t bar = smem_addr(full + q % kS), dst = slot(q);
     if (q - kS == ws.n_a) fence_proxy_async();
     if (q < ws.n_a) {
-      mbar_expect_tx(bar, kChunkBytes);
-      bulk_copy(dst, ws.a + (size_t)q * kChunkBytes, kChunkBytes, bar);
+      copy(q, ws.a + (size_t)q * kChunkBytes, kChunkBytes);
     } else if (q == ws.n_a) {
+      const uint32_t bar = smem_addr(full + q % kS), dst = slot(q);
       const uint32_t n0 = ws.n_s0 * 4, n1 = ws.n_s1 * 4;
       mbar_expect_tx(bar, n0 + n1);
       bulk_copy(dst, ws.s0, n0, bar);
       bulk_copy(dst + n0, ws.s1, n1, bar);
     } else if (q - ws.n_a - 1 < ws.n_b) {
-      mbar_expect_tx(bar, kChunkBytes);
-      bulk_copy(dst, ws.b + (size_t)(q - ws.n_a - 1) * kChunkBytes, kChunkBytes, bar);
+      copy(q, ws.b + (size_t)(q - ws.n_a - 1) * kChunkBytes, kChunkBytes);
     }
   }
 
@@ -342,13 +363,108 @@ struct Ring {
   // Every thread of a warpgroup, once the warpgroup's wgmma's have read
   // position q: the warpgroup meets at its named barrier (1 or 2; 0 is
   // __syncthreads') and its first thread counts it out of the slot; the
-  // second warpgroup out refills the slot with position q + kS.
+  // second warpgroup out calls refill(q + kS), which may put that position in
+  // flight (ring.copy).
+  template <typename Refill>
+  __device__ __forceinline__ void release(int q, Refill refill) const {
+    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (int)(threadIdx.x >> 7)) : "memory");
+    if ((threadIdx.x & 127) == 0 && (atomicAdd(done + q % kS, 1) & 1) == 1) refill(q + kS);
+  }
+
   template <int kChunkBytes>
   __device__ __forceinline__ void release(int q, const WeightStream& ws) const {
-    asm volatile("bar.sync %0, 128;\n" ::"r"(1 + (int)(threadIdx.x >> 7)) : "memory");
-    if ((threadIdx.x & 127) == 0 && (atomicAdd(done + q % kS, 1) & 1) == 1)
-      issue<kChunkBytes>(q + kS, ws);
+    release(q, [&](int p) { issue<kChunkBytes>(p, ws); });
   }
 };
+
+// ------------------------------------------------------ conv1_2 + pool
+
+// k-steps per partial: 32 input channels in both forms (a bf16 partial of 64
+// failed the junction's float64 bars; PERF.md).
+template <typename T>
+constexpr int kFoldSteps = is_f32<T>() ? 4 : 2;
+
+// The A fragment of k-step j of chunk c for the lane's rows of one row block:
+// f32 the 4 values at rows off[0], off[1] (map pixels), channels ch + t,
+// ch + t + 4 of planes `plane` floats apart, split into hi and lo.
+__device__ __forceinline__ void a_tf32(const float* p, int plane, const int (&off)[2],
+                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float a = p[(e >> 1) * 4 * plane + off[e & 1]];
+    ah[e] = to_tf32(a);
+    al[e] = to_tf32(a - __uint_as_float(ah[e]));
+  }
+}
+
+// e1 [(8 kRB + 2) x 18] (halo fixed) -> relu(conv1_2) on the (8 kRB) x 16 tile
+// -> 2x2 max pool, each pooled value handed to store(r, x, c, v): pooled row r
+// (0 .. 4 kRB - 1) and column x (0 .. 7) of the tile, channel c; each once,
+// by one lane. Warp w owns tile rows kRB w .. kRB w + kRB - 1, one
+// 16-pixel slice each; slice rb of the four warps is the warpgroup's row block
+// rb (M = 64), so a chunk's B feeds kRB row blocks. conv1_2's chunk c is ring
+// position q0 + c: wait(q) before its wgmma's, release(q) after them; slot(q)
+// its shared address. The pool's vertical max is between slices 2p and 2p + 1
+// in registers, its horizontal max one shuffle away (lane ^ 4). Under bf16 the
+// max of the rounded values is the rounded max.
+template <typename T, int kRB, typename Slot, typename Wait, typename Release, typename Store>
+__device__ __forceinline__ void conv1_2_pool(const T* e1, int q0, Slot slot, Wait wait,
+                                             Release release, const float* __restrict__ be2,
+                                             Store store) {
+  constexpr int kChunks = Tc<T>::kChunks, kPerTap = kChunks / 9;
+  constexpr int kPlane = (8 * kRB + 2) * kE1S;  // e1's pixels
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  float acc[kRB][32];
+#pragma unroll
+  for (int rb = 0; rb < kRB; ++rb)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[rb][i] = 0.f;
+  if constexpr (is_f32<T>()) {
+    for (int c = 0; c < kChunks; ++c) {
+      const int q = q0 + c, tap = c / kPerTap, dy = tap / 3, dx = tap % 3;
+      const int ch0 = (c % kPerTap) * kStepsPerChunk * Tc<T>::kKStep;
+      wait(q);
+      chunk_rows_tf32<kRB, kFoldSteps<T>>(acc, slot(q),
+                                          [&](int rb, int j, uint32_t(&ah)[4], uint32_t(&al)[4]) {
+                                            const int row = kRB * warp + rb + dy;  // e1 row of the slice
+                                            const int off[2] = {row * kE1S + g + dx,
+                                                                row * kE1S + g + 8 + dx};
+                                            a_tf32(e1 + (ch0 + 8 * j + t) * kPlane, kPlane, off,
+                                                   ah, al);
+                                          });
+      release(q);
+    }
+  } else {  // a chunk is a tap
+    const uint32_t a_base =
+        smem_addr(e1 + (kRB * warp * kE1S + (lane & 15)) * kPitch + 8 * (lane >> 4));
+    const auto row_at = [&](int c, int rb) {
+      return a_base + ((rb + c / 3) * kE1S + c % 3) * kPitch * 2;
+    };
+    uint32_t a[2][kStepsPerChunk][4];
+    load_a(a[0], row_at(0, 0));
+    for (int c = 0; c < kChunks; ++c) {
+      const int q = q0 + c;
+      wait(q);
+      chunk_rows<kRB, kFoldSteps<T>>(acc, a, slot(q), [&](int rb) { return row_at(c, rb); },
+                                     c + 1 < kChunks ? row_at(c + 1, 0) : 0u);
+      release(q);
+    }
+  }
+  // acc[rb][4 nt + e]: tile row kRB warp + rb, column g + 8 (e >> 1), channel
+  // 8 nt + 2 t + (e & 1).
+#pragma unroll
+  for (int p = 0; p < kRB / 2; ++p)
+#pragma unroll
+    for (int nt = 0; nt < 8; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float bias = __ldg(be2 + 8 * nt + 2 * t + (e & 1));
+        float v = fmaxf(fmaxf(acc[2 * p][4 * nt + e] + bias, 0.f),
+                        fmaxf(acc[2 * p + 1][4 * nt + e] + bias, 0.f));
+        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
+        if ((g & 1) == 0)
+          store((kRB / 2) * warp + p, (g >> 1) + 4 * (e >> 1), 8 * nt + 2 * t + (e & 1), v);
+      }
+}
 
 }  // namespace wct

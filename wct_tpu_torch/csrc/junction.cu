@@ -44,7 +44,8 @@
 //          (a chunk ahead): f32 per element from the planar d tile and split
 //          into hi and lo, bf16 by ldmatrix from a channel-minor copy.
 //   conv1_2  256 pixels in 4 row blocks; warp w's slices are tile rows 2w and
-//          2w + 1, so the pool's vertical max is in its registers.
+//          2w + 1, so the pool's vertical max is in its registers
+//          (conv_wgmma.cuh::conv1_2_pool, which encoder_head.cu runs too).
 //
 // B arrives in 16 KB slots by bulk copy on mbarriers (conv_wgmma.cuh's ring;
 // f32 3 slots, bf16 6): m's conv (f32 18 chunks of half a tap, hi then lo;
@@ -56,8 +57,8 @@
 // partial covers 32 input channels (f32 4 k-steps, bf16 2).
 //
 // The 64->3 and 3->64 stages: f32 FFMA (stage_rgb below,
-// conv_tc.cuh::stage_e1); bf16 on mma.sync.m16n8k16 (stage_rgb_mma,
-// stage_e1_mma below), whose B fragments fit the same slot.
+// conv_tc.cuh::stage_e1); bf16 on mma.sync.m16n8k16 (stage_rgb_mma below,
+// conv_tc.cuh::stage_e1_mma), whose B fragments fit the same slot.
 //
 // Shared memory, from a 1 KB-aligned base (the swizzle atoms must be):
 //
@@ -293,9 +294,6 @@ template <typename T>
 struct Wg {
   static constexpr int kSlots = is_f32<T>() ? 3 : 6;
   static constexpr int kRing = kSlots * kJSlot;
-  // k-steps per partial: 32 input channels in both forms (a bf16 partial of
-  // 64 failed the float64 bars; PERF.md).
-  static constexpr int kFold = is_f32<T>() ? 4 : 2;
 };
 
 template <typename T>
@@ -306,20 +304,6 @@ __host__ __device__ constexpr int junction_smem() {
 
 static_assert(junction_smem<float>() <= 232448, "one block's shared memory on sm_90");
 static_assert(junction_smem<bf16>() <= 232448, "one block's shared memory on sm_90");
-static_assert(Ring<1>::kJSlotBytes == kJSlot, "the ring's slots are the junction's");
-
-// The A fragment of k-step j of chunk c for the lane's rows of one row block:
-// f32 the 4 values at rows off[0], off[1] (d-tile or e1 pixels), channels
-// ch + t, ch + t + 4 of planes `plane` floats apart, split into hi and lo.
-__device__ __forceinline__ void a_tf32(const float* p, int plane, const int (&off)[2],
-                                       uint32_t (&ah)[4], uint32_t (&al)[4]) {
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float a = p[(e >> 1) * 4 * plane + off[e & 1]];
-    ah[e] = to_tf32(a);
-    al[e] = to_tf32(a - __uint_as_float(ah[e]));
-  }
-}
 
 // bf16, the 64->3 and 3->64 stages on mma.sync.m16n8k16 (bf16 x bf16 -> f32)
 // instead of FFMA: the weights as B fragments in the FFMA stages' slot,
@@ -329,7 +313,6 @@ __device__ __forceinline__ void a_tf32(const float* p, int plane, const int (&of
 // _e1_frags_bf16. Products are exact, sums f32, one rounding after bias,
 // clip or ReLU, as the FFMA stages.
 constexpr int kRgbFragWords = 36 * 32 * 2;    // 9,216 bytes
-constexpr int kE1FragWords = 2 * 8 * 32 * 2;  // 4,096 bytes
 static_assert(kRgbFragWords == kCh * 9 * 4, "rgb's fragments take the FFMA weights' bytes");
 
 // m [22 x 22] (halo fixed, channel-minor) -> rgb [3][20][20] f32 holding bf16
@@ -383,64 +366,6 @@ __device__ __forceinline__ void stage_rgb_mma(const bf16* m, float* rgb, const u
   }
 }
 
-// rgb [3][20][20] (halo fixed) -> e1 [18 x 18] channel-minor = relu(conv0∘conv1_1):
-// 324 pixels = 21 m-tiles, warp w m-tiles w, w + 8, ...; A gathered per
-// element, k = 9 ci + tap.
-__device__ __forceinline__ void stage_e1_mma(const float* rgb, bf16* e1, const uint32_t* wf,
-                                             const float* __restrict__ be1) {
-  constexpr int kPix = kE1S * kE1S, kTiles = (kPix + 15) / 16;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  uint32_t b[2][8][2];
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const uint2 v = *reinterpret_cast<const uint2*>(wf + ((s * 8 + nt) * 32 + lane) * 2);
-      b[s][nt][0] = v.x;
-      b[s][nt][1] = v.y;
-    }
-  int koff[2][4];  // rgb offset of k = 16 s + 2 t + {0, 1, 8, 9}; -1 past 27
-#pragma unroll
-  for (int s = 0; s < 2; ++s)
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const int k = 16 * s + 2 * t + (q & 1) + 8 * (q >> 1);
-      koff[s][q] = k < 27 ? (k / 9) * kRgbS * kRgbS + ((k % 9) / 3) * kRgbS + k % 3 : -1;
-    }
-  for (int mt = warp; mt < kTiles; mt += 8) {
-    int pix[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int p = min(mt * 16 + g + 8 * r, kPix - 1);
-      pix[r] = (p / kE1S) * kRgbS + p % kE1S;
-    }
-    float acc[8][4] = {};
-#pragma unroll
-    for (int s = 0; s < 2; ++s) {
-      float v[2][4];
-#pragma unroll
-      for (int r = 0; r < 2; ++r)
-#pragma unroll
-        for (int q = 0; q < 4; ++q) v[r][q] = koff[s][q] < 0 ? 0.f : rgb[koff[s][q] + pix[r]];
-      const uint32_t a[4] = {pack_bf16(v[0][0], v[0][1]), pack_bf16(v[1][0], v[1][1]),
-                             pack_bf16(v[0][2], v[0][3]), pack_bf16(v[1][2], v[1][3])};
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) mma_bf16_16816(acc[nt], a, b[s][nt][0], b[s][nt][1]);
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const int p = mt * 16 + g + 8 * r;
-      if (p >= kPix) continue;
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
-        const int co = 8 * nt + 2 * t;
-        store_pair(e1, kPix, p, co, fmaxf(acc[nt][2 * r] + __ldg(be1 + co), 0.f),
-                   fmaxf(acc[nt][2 * r + 1] + __ldg(be1 + co + 1), 0.f));
-      }
-    }
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
@@ -463,7 +388,7 @@ junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
   float* rgb = reinterpret_cast<float*>(base + Wg<T>::kRing + m_bytes<T>() + d_bytes<T>());
   int* ly = reinterpret_cast<int*>(rgb + kRgbFloats);
   int* lx = ly + kUS;
-  const Ring<kS> ring{base, reinterpret_cast<uint64_t*>(lx + kUS),
+  const Ring<kS, kJSlot> ring{base, reinterpret_cast<uint64_t*>(lx + kUS),
                       reinterpret_cast<int*>(reinterpret_cast<uint64_t*>(lx + kUS) + kS)};
   const WeightStream ws{wd1f, kChunks, wd2, kCh * 9 * 4, we1,
                         is_f32<T>() ? 3 * kTapStride : kE1FragWords, we2f, deep ? kChunks : 0};
@@ -526,7 +451,7 @@ junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
           for (int r = 0; r < 2; ++r)
             off[rb][r] = ly[(pyx[rb][r] >> 8) + dy] * kDS + lx[(pyx[rb][r] & 255) + dx];
         wait(c);
-        chunk_rows_tf32<kRB, Wg<T>::kFold>(acc, ring.slot(c),
+        chunk_rows_tf32<kRB, kFoldSteps<T>>(acc, ring.slot(c),
                              [&](int rb, int j, uint32_t(&ah)[4], uint32_t(&al)[4]) {
                                a_tf32(dt + (32 * part + 8 * j + t) * kDPlane, kDPlane, off[rb],
                                       ah, al);
@@ -550,7 +475,7 @@ junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
       for (int c = 0; c < kChunks; ++c) {
         if (c + 1 < kChunks) rows_at(c + 1, next);
         wait(c);
-        chunk_rows<kRB, Wg<T>::kFold>(acc, a, ring.slot(c), [&](int rb) { return row[rb]; },
+        chunk_rows<kRB, kFoldSteps<T>>(acc, a, ring.slot(c), [&](int rb) { return row[rb]; },
                         c + 1 < kChunks ? next[0] : 0u);
         JRELEASE(ring.template release<kChunkBytes>(c, ws));
 #pragma unroll
@@ -573,7 +498,7 @@ junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
       }
   }
   JSTAMP(2);
-  fix_halo(bufM, kMS, kT * by - 3, kT * bx - 3, H, W);
+  fix_halo(bufM, kMS, kMS, kT * by - 3, kT * bx - 3, H, W);
   JSTAMP(3);
 
   // ---- decoder conv 64->3 (linear, optional clip): rgb, 20x20 ----
@@ -590,7 +515,7 @@ junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
   else
     stage_rgb_mma(bufM, rgb, reinterpret_cast<const uint32_t*>(small), bd2, clip);
   JSTAMP(11);
-  fix_halo(rgb, 3, kRgbS, kT * by - 2, kT * bx - 2, H, W);
+  fix_halo(rgb, 3, kRgbS, kRgbS, kT * by - 2, kT * bx - 2, H, W);
   JSTAMP(4);
 
   // ---- encoder conv0∘conv1_1 + relu: e1, 18x18 (over m, which is dead) ----
@@ -608,76 +533,26 @@ junction_kernel(const T* __restrict__ d, const unsigned char* __restrict__ wd1f,
     JSTAMP_RELEASED(13);
     return;
   }
-  fix_halo(bufE, kE1S, kT * by - 1, kT * bx - 1, H, W);
+  fix_halo(bufE, kE1S, kE1S, kT * by - 1, kT * bx - 1, H, W);
   // Every thread is past the FFMA stages' weights: their slot takes the
   // chunk kS positions on.
   if (tid == 0) ring.template issue<kChunkBytes>(kChunks + kS, ws);
   JSTAMP(5);
 
   // ---- encoder conv1_2 + relu + 2x2 max pool ----
-  {
-    float acc[2][32];
-#pragma unroll
-    for (int rb = 0; rb < 2; ++rb)
-#pragma unroll
-      for (int i = 0; i < 32; ++i) acc[rb][i] = 0.f;
-    if constexpr (is_f32<T>()) {
-      for (int c = 0; c < kChunks; ++c) {
-        const int q = kChunks + 1 + c, tap = c / kPerTap, dy = tap / 3, dx = tap % 3;
-        const int ch0 = (c % kPerTap) * kStepsPerChunk * Tc<T>::kKStep;
-        {
-          JWAIT_BEGIN;
-          ring.wait(q);
-          JWAIT_END;
-        }
-        chunk_rows_tf32<2, Wg<T>::kFold>(acc, ring.slot(q),
-                           [&](int rb, int j, uint32_t(&ah)[4], uint32_t(&al)[4]) {
-                             const int row = 2 * warp + rb + dy;  // e1 row of the warp's slice
-                             const int off[2] = {row * kE1S + g + dx, row * kE1S + g + 8 + dx};
-                             a_tf32(bufE + (ch0 + 8 * j + t) * kE1S * kE1S, kE1S * kE1S, off,
-                                    ah, al);
-                           });
-        JRELEASE(ring.template release<kChunkBytes>(q, ws));
-      }
-    } else {  // a chunk is a tap
-      const uint32_t a_base =
-          smem_addr(bufE + (2 * warp * kE1S + (lane & 15)) * kPitch + 8 * (lane >> 4));
-      const auto row_at = [&](int c, int rb) {
-        return a_base + ((rb + c / 3) * kE1S + c % 3) * kPitch * 2;
-      };
-      uint32_t a[2][kStepsPerChunk][4];
-      load_a(a[0], row_at(0, 0));
-      for (int c = 0; c < kChunks; ++c) {
-        const int q = kChunks + 1 + c;
-        {
-          JWAIT_BEGIN;
-          ring.wait(q);
-          JWAIT_END;
-        }
-        chunk_rows<2, Wg<T>::kFold>(acc, a, ring.slot(q), [&](int rb) { return row_at(c, rb); },
-                      c + 1 < kChunks ? row_at(c + 1, 0) : 0u);
-        JRELEASE(ring.template release<kChunkBytes>(q, ws));
-      }
-    }
-    // acc[rb][4 nt + e]: tile row 2 warp + rb, column g + 8 (e >> 1), channel
-    // 8 nt + 2 t + (e & 1). The pool's vertical max is rb, its horizontal max
-    // one shuffle away (lane ^ 4). Under bf16 the max of the rounded values is
-    // the rounded max.
-    T* out_b = out + (size_t)b * kCh * h * w;
-    const int oy = (kT / 2) * by + warp;
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float bias = __ldg(be2 + 8 * nt + 2 * t + (e & 1));
-        float v = fmaxf(fmaxf(acc[0][4 * nt + e] + bias, 0.f), fmaxf(acc[1][4 * nt + e] + bias, 0.f));
-        v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 4));
-        if ((g & 1) == 0) {
-          const int ox = (kT / 2) * bx + (g >> 1) + 4 * (e >> 1);
-          store_value(out_b + ((size_t)(8 * nt + 2 * t + (e & 1)) * h + oy) * w + ox, v);
-        }
-      }
-  }
+  T* out_b = out + (size_t)b * kCh * h * w;
+  const int oy0 = (kT / 2) * by, ox0 = (kT / 2) * bx;
+  conv1_2_pool<T, 2>(
+      bufE, kChunks + 1, [&](int q) { return ring.slot(q); },
+      [&](int q) {
+        JWAIT_BEGIN;
+        ring.wait(q);
+        JWAIT_END;
+      },
+      [&](int q) { JRELEASE(ring.template release<kChunkBytes>(q, ws)); }, be2,
+      [&](int r, int x, int c, float v) {
+        store_value(out_b + ((size_t)c * h + oy0 + r) * w + ox0 + x, v);
+      });
   JSTAMP(6);
   JSTAMP_CLOCK(8);
   JSTAMP_WAITED(12);

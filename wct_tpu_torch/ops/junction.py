@@ -19,9 +19,9 @@ Each computes in the operand type of its map, f32 or bf16, as the TPU
 kernels do (``junction_pallas.py:386``, ``:486``, ``:556``). Each has a
 plain PyTorch version (``_encoder_head_plain``, ``_junction_plain``,
 ``_decoder_tail_plain``) and a hand-written CUDA kernel per operand type
-(``csrc/encoder_head.cu`` and ``csrc/junction.cu``, both types;
-``csrc/decoder_tail.cu`` f32 and ``csrc/conv3x3_small.cu``'s per-image
-entry bf16; the designs and bounds are in the sources). A CUDA tensor
+(``csrc/encoder_head.cu``, ``csrc/junction.cu`` and
+``csrc/decoder_tail.cu``, each one source for both types; the designs
+and bounds are in the sources). A CUDA tensor
 launches the kernel of its type or raises, a CPU tensor takes the plain
 version, any other device raises; there is no fallback from kernel to
 plain or from one type to the other. ``encoder_head_cuda.launches``
@@ -160,37 +160,9 @@ def _tf32(x: torch.Tensor) -> torch.Tensor:
     return (mag | (i & -0x80000000)).view(torch.float32)
 
 
-def _tc_frags(w: torch.Tensor) -> torch.Tensor:
-    """OIHW ``[64, 64, 3, 3]`` → the junction kernel's 3×TF32 B fragments.
-
-    ``[tap][k-step][n-tile][lane][4]`` f32: lane ``4g + t`` of n-tile
-    ``nt`` at k-step ``ks`` holds ``hi`` and then ``lo`` of
-    ``w[8nt + g, 8ks + t, tap]`` and ``w[8nt + g, 8ks + t + 4, tap]``
-    (an ``mma.m16n8k8`` B fragment), with ``hi = tf32(w)`` and
-    ``lo = tf32(w − hi)``.
-    """
-    t = w.float().reshape(8, 8, 8, 2, 4, 9)  # nt, g, ks, j, t, tap
-    t = t.permute(5, 2, 0, 1, 4, 3)  # tap, ks, nt, g, t, j
-    hi = _tf32(t)
-    return torch.cat([hi, _tf32(t - hi)], dim=-1).contiguous()
-
-
-def _tc_frags_bf16(w: torch.Tensor) -> torch.Tensor:
-    """OIHW ``[64, 64, 3, 3]`` → the bf16 kernels' ``mma.m16n8k16`` B
-    fragments.
-
-    ``[tap][k-step][n-tile pair][lane][2][4]`` bf16, 16 bytes per lane and
-    pair: lane ``4g + t`` of n-tile ``nt = 2p + s`` at k-step ``ks`` holds
-    ``w[8nt + g, 16ks + 2t + 8r + e, tap]`` at ``[s][2r + e]`` (registers
-    b0, b1 of the fragment, low half first), the weights rounded to bf16.
-    """
-    t = w.to(torch.bfloat16).reshape(4, 2, 8, 4, 2, 4, 2, 9)  # p, s, g, ks, r, t, e, tap
-    t = t.permute(7, 3, 0, 2, 5, 1, 4, 6)  # tap, ks, p, g, t, s, r, e
-    return t.reshape(9, 4, 4, 32, 2, 4).contiguous()
-
-
 def _wgmma_weights(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """OIHW ``[64, 64, 3, 3]`` → the junction kernel's ``wgmma`` B operand.
+    """OIHW ``[64, 64, 3, 3]`` → the ``wgmma`` B operand of the junction's and
+    the head's 64→64 convs.
 
     Per tap (``tap = 3·ky + kx``) the weights as N = 64 output-channel
     rows of K-major input channels, 128 bytes a row, eight rows to a
@@ -244,18 +216,6 @@ def _e1_frags_bf16(w: torch.Tensor) -> torch.Tensor:
     return _b_frags_bf16(F.pad(w.reshape(64, 27), (0, 5)), 8)
 
 
-def _tail_taps_bf16(w: torch.Tensor, b: torch.Tensor):
-    """Per-image ``w [B, 3, 64, 3, 3]``, ``b [B, 3]`` → the small-conv
-    kernel's bf16 k-group layout and f32 bias for every image, in one
-    pass over the batch: ``[B, 72, 8, 8]`` and ``[B, 8]``, image ``i``
-    what ``conv_small._taps(w[i], b[i])`` gives (k-group ``8·tap + g``
-    holds ``w[i, co, 8g:8g+8, tap]``, co padded to 8)."""
-    bsz = w.shape[0]
-    t = F.pad(w.to(torch.bfloat16), (0, 0, 0, 0, 0, 0, 0, 5))  # co 3 → 8
-    t = t.reshape(bsz, 8, 8, 8, 9).permute(0, 4, 2, 1, 3)  # b, tap, g, co, j
-    return t.reshape(bsz, 72, 8, 8).contiguous(), F.pad(b.float(), (0, 5)).contiguous()
-
-
 def _check_input(name: str, x: torch.Tensor, channels: int, scale: int = 1) -> None:
     """What both routes need of the map ``x [B, channels, H/scale, W/scale]``."""
     if x.dim() != 4 or x.shape[1] != channels:
@@ -289,15 +249,6 @@ def _check_on_card(name: str, x: torch.Tensor, weights: dict) -> None:
 _PTR, _INT = ctypes.c_void_p, ctypes.c_int
 
 
-def _f32(t: torch.Tensor) -> torch.Tensor:
-    return t.float().contiguous()
-
-
-def _frags(w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """A 64→64 conv's tensor-core B fragments for the kernel of ``dtype``."""
-    return _tc_frags(w) if dtype == torch.float32 else _tc_frags_bf16(w)
-
-
 def _counted(fn, x: torch.Tensor) -> None:
     fn.launches += 1
     fn.launches_by_dtype[DTYPES[x.dtype]] += 1
@@ -308,36 +259,8 @@ def _counter(fn) -> None:
     fn.launches_by_dtype = {name: 0 for name in DTYPES.values()}
 
 
-def encoder_head_cuda(x, we1, be1, w12, b12) -> torch.Tensor:
-    """The CUDA kernel of ``x``'s type on ``x [B, 3, H, W]`` (f32 or bf16,
-    contiguous, on the card; H and W multiples of 16) → ``[B, 64, H/2,
-    W/2]`` of the same type.
-
-    ``we1 [64, 3, 3, 3], be1`` is the folded conv0∘conv1_1. Launches on
-    the current stream and does not synchronise; raises on any input
-    the kernel does not take, and if the launch fails.
-    """
-    name = "encoder_head_cuda"
-    _check_input(name, x, 3)
-    _check_on_card(name, x, {
-        "conv1_1": (we1, (CHANNELS, 3, 3, 3)), "conv1_1's bias": (be1, (CHANNELS,)),
-        "conv1_2": (w12, (CHANNELS, CHANNELS, 3, 3)), "conv1_2's bias": (b12, (CHANNELS,)),
-    })
-    b, _, h, w = x.shape
-    out = torch.empty((b, CHANNELS, h // 2, w // 2), dtype=x.dtype, device=x.device)
-    t1, t2, c1, c2 = _taps(we1, dtype=x.dtype), _frags(w12, x.dtype), _f32(be1), _f32(b12)
-    _build.launch(name, "encoder_head", f"encoder_head_{DTYPES[x.dtype]}", [_PTR] * 6 + [_INT] * 3,
-            (x.data_ptr(), t1.data_ptr(), c1.data_ptr(), t2.data_ptr(), c2.data_ptr(),
-             out.data_ptr(), b, h, w), x.device)
-    _counted(encoder_head_cuda, x)
-    return out
-
-
-_counter(encoder_head_cuda)
-
-
-# The junction's weights in its kernel's layouts, per set of weight tensors:
-# the cascade calls the kernel with the same parameters every microbatch,
+# The junction's and the head's weights in their kernels' layouts, per set of
+# weight tensors: the cascade calls each with the same parameters every microbatch,
 # and packing them (a dozen small ops) took about a tenth of a bf16 launch.
 # An entry holds its source tensors by weak reference (an entry goes when
 # one of them does) and their versions, which an in-place update bumps. On
@@ -382,6 +305,59 @@ def _packed(lib: str, dtype: torch.dtype, weights: tuple, pack) -> tuple:
     refs = tuple(weakref.ref(t, functools.partial(_drop_packed, key)) for t in weights)
     _PACKED[key] = (refs, versions, out, stream, event)
     return out
+
+
+def _check_aligned(name: str, x: torch.Tensor) -> None:
+    """The bf16 head copies rows of its image in 16-byte pieces, and the
+    tail's TMA tensor map needs a base on a 16-byte boundary."""
+    if x.data_ptr() % 16:
+        raise ValueError(f"{name} needs a map on a 16-byte boundary")
+
+
+def _head_weights(we1, be1, w12, b12, dtype: torch.dtype) -> tuple:
+    """The head's weights in its kernel's layouts: conv1_1 as the 3→64
+    stage takes it (f32 ``[3, 9, 64]`` taps, bf16 ``mma.sync`` fragments),
+    conv1_2 in the ``wgmma`` layout, the biases f32."""
+    t1 = _taps(we1) if dtype == torch.float32 else _e1_frags_bf16(we1)
+    return t1, be1.float().clone(), _wgmma_weights(w12, dtype), b12.float().clone()
+
+
+def _head_launch(name, x, we1, be1, w12, b12, defines=()) -> torch.Tensor:
+    """Check the head's inputs and launch ``csrc/encoder_head.cu``'s entry of
+    ``x``'s type (built with ``defines``: ``tools/head_stages`` builds it with
+    ``WCT_STAGE_TIMES``)."""
+    _check_input(name, x, 3)
+    _check_on_card(name, x, {
+        "conv1_1": (we1, (CHANNELS, 3, 3, 3)), "conv1_1's bias": (be1, (CHANNELS,)),
+        "conv1_2": (w12, (CHANNELS, CHANNELS, 3, 3)), "conv1_2's bias": (b12, (CHANNELS,)),
+    })
+    if x.dtype == torch.bfloat16:  # f32 copies each value on its own
+        _check_aligned(name, x)
+    b, _, h, w = x.shape
+    out = torch.empty((b, CHANNELS, h // 2, w // 2), dtype=x.dtype, device=x.device)
+    t1, c1, t2, c2 = _packed("encoder_head", x.dtype, (we1, be1, w12, b12),
+                             lambda: _head_weights(we1, be1, w12, b12, x.dtype))
+    _build.launch(name, "encoder_head", f"encoder_head_{DTYPES[x.dtype]}", [_PTR] * 6 + [_INT] * 3,
+                  (x.data_ptr(), t1.data_ptr(), c1.data_ptr(), t2.data_ptr(), c2.data_ptr(),
+                   out.data_ptr(), b, h, w), x.device, defines)
+    return out
+
+
+def encoder_head_cuda(x, we1, be1, w12, b12) -> torch.Tensor:
+    """The CUDA kernel of ``x``'s type on ``x [B, 3, H, W]`` (f32 or bf16,
+    contiguous, on the card, bf16 on a 16-byte boundary; H and W multiples
+    of 16) → ``[B, 64, H/2, W/2]`` of the same type.
+
+    ``we1 [64, 3, 3, 3], be1`` is the folded conv0∘conv1_1. Launches on
+    the current stream and does not synchronise; raises on any input
+    the kernel does not take, and if the launch fails.
+    """
+    out = _head_launch("encoder_head_cuda", x, we1, be1, w12, b12)
+    _counted(encoder_head_cuda, x)
+    return out
+
+
+_counter(encoder_head_cuda)
 
 
 def _junction_launch(name, d, wd1, bd1, wd2, bd2, we1, be1, w12, b12, deep, clip,
@@ -441,27 +417,22 @@ _counter(junction_cuda)
 
 
 def decoder_tail_cuda(f, w, b, clip: bool = False) -> torch.Tensor:
-    """The CUDA kernel of ``f``'s type on ``f [B, 64, H, W]`` (f32 or bf16,
-    contiguous, on the card; H and W multiples of 16) with per-image
+    """The CUDA kernel of ``f``'s type (``csrc/decoder_tail.cu``, one source
+    for both) on ``f [B, 64, H, W]`` (f32 or bf16, contiguous, on the card,
+    on a 16-byte boundary; H and W multiples of 16) with per-image
     ``w [B, 3, 64, 3, 3]``, ``b [B, 3]`` → ``[B, 3, H, W]`` of the same
-    type. f32 runs ``csrc/decoder_tail.cu``; bf16 runs the small conv's
-    per-image entry (``csrc/conv3x3_small.cu``), which computes this conv
-    under the same one-rounding rule. Conditions as ``encoder_head_cuda``."""
+    type. Otherwise as ``encoder_head_cuda``."""
     name = "decoder_tail_cuda"
     _check_input(name, f, CHANNELS)
     bsz, _, h, wd = f.shape
     _check_on_card(name, f, {"per-image weights": (w, (bsz, 3, CHANNELS, 3, 3)),
                              "per-image biases": (b, (bsz, 3))})
+    _check_aligned(name, f)
     out = torch.empty((bsz, 3, h, wd), dtype=f.dtype, device=f.device)
-    if f.dtype == torch.float32:
-        t, c = _taps(w, pad_co=4), F.pad(b.float(), (0, 1)).contiguous()
-        lib = "decoder_tail"
-    else:
-        if f.data_ptr() % 16:
-            raise ValueError(f"{name} needs a bfloat16 map on a 16-byte boundary")
-        t, c = _tail_taps_bf16(w, b)
-        lib = "conv3x3_small"
-    _build.launch(name, lib, f"decoder_tail_{DTYPES[f.dtype]}", [_PTR] * 4 + [_INT] * 4,
+    # OIHW and f32 as the cascade folds them: the kernel lays them out (and,
+    # under bf16, rounds them) as it loads them.
+    t, c = w.float().contiguous(), b.float().contiguous()
+    _build.launch(name, "decoder_tail", f"decoder_tail_{DTYPES[f.dtype]}", [_PTR] * 4 + [_INT] * 4,
             (f.data_ptr(), t.data_ptr(), c.data_ptr(), out.data_ptr(), bsz, h, wd, int(clip)),
             f.device)
     _counted(decoder_tail_cuda, f)
@@ -502,7 +473,10 @@ def _route(name: str, x: torch.Tensor, kernel, plain, *args):
 def encoder_head_nchw(x, enc_w0, enc_b0, enc_w11, enc_b11, enc_w12, enc_b12):
     """``encoder_head`` on NCHW ``x [B, 3, H, W]`` → ``[B, 64, H/2, W/2]``."""
     _check_input("encoder_head", x, 3)
-    we1, be1 = fold_conv0(enc_w0, enc_b0, enc_w11, enc_b11)
+    # Folded once per set of parameters, so that the kernel's packed
+    # weights (_packed) are found again on the next call.
+    we1, be1 = _packed("fold_conv0", torch.float32, (enc_w0, enc_b0, enc_w11, enc_b11),
+                       lambda: fold_conv0(enc_w0, enc_b0, enc_w11, enc_b11))
     return _route("encoder_head", x, encoder_head_cuda, _encoder_head_plain,
                   we1, be1, enc_w12, enc_b12)
 
