@@ -922,7 +922,8 @@ def throughput_path_tensors(params, content, cache, cfg):
 def phase_conv_small_kernels(params, t, name):
     """conv3x3_small, both entries, against its plain version: the
     trained 3→64, 64→64 and 64→3 convs on the tensors the throughput
-    cascade hands them, at B = 4 and B = 1, and awkward shapes."""
+    cascade hands them, at B = 4 and B = 1, on a 1280×720 frame (the
+    stream's; an image in [0, 1] or a ReLU map), and awkward shapes."""
     bw = peaks(name)[1]
     tensor_rate = bf16_peak(name)
     enc, dec2 = params["encoder"], params["decoders"]["relu2_1"]
@@ -975,10 +976,16 @@ def phase_conv_small_kernels(params, t, name):
         run(f"{case}_b4_512", x.contiguous(), w, b, relu, True)
     for case, x, (w, b), relu in cases:
         run(f"{case}_b1_512", x[:1].contiguous(), w, b, relu, False)
+    for case, x, (w, b), relu in cases:
+        shape = (1, x.shape[1], 720, 1280)
+        frame = torch.rand(shape, generator=gen) if x.shape[1] == 3 else torch.randn(shape, generator=gen).relu()
+        run(f"{case}_b1_720x1280", frame.to(DEV).to(torch.bfloat16), w, b, relu, False)
     for bsz, h, wd in ((1, 8, 8), (2, 24, 40), (3, 16, 264)):
         for case, _, (w, b), relu in cases:
             x = torch.randn(bsz, w.shape[1], h, wd, generator=gen).to(DEV).to(torch.bfloat16)
             run(f"{case}_b{bsz}_{h}x{wd}", x, w, b, relu, False)
+
+    check_hgmma("conv3x3_small", ("conv3x3_small_wgmma",), "kernel")
 
     def line(key):
         main_rows = [r for r in rows if r["main_path"]]

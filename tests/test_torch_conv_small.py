@@ -188,23 +188,33 @@ def test_kernel_wrapper_needs_the_card():
 
 
 def test_taps_layout():
-    """bf16 ``[k-group, co_pad, 8]``: k-group ``tap·G + g`` holds input
-    channels 8g..8g+7 of tap (dy, dx); zero-padded in channels, in
-    ``co`` to 8 (C_out ≤ 8) or 64, and to an even number of k-groups."""
+    """The weights as the kernel lays them out in shared memory
+    (``_weight_layout``, written by ``csrc/conv3x3_small.cu`` from OIHW):
+    k-group ``tap·G + g`` of output channel ``n`` in 16-byte unit ``(kg %
+    8) ^ (n % 8)`` of row ``n`` of chunk ``kg // 8``; zero-padded in
+    channels, in ``n`` to 8 (C_out ≤ 8) or 64, and past the last k-group."""
     _, w, b = _case(6, (1, 8, 8), 3, 64)
     tw, tb = conv_small.weights_from_hwio(w, b, device="cpu")
-    taps, bias = conv_small._taps(tw, tb)
-    assert taps.dtype == torch.bfloat16
-    assert taps.shape == (10, 64, 8) and bias.shape == (64,)  # 9 taps × 1 group, + 1
-    assert torch.equal(taps[5, :, 2], tw[:, 2, 1, 2].to(torch.bfloat16))
-    assert float(taps[:, :, 3:].float().abs().max()) == 0.0 and float(taps[9].float().abs().max()) == 0.0
-    taps, bias = conv_small._taps(tw.permute(1, 0, 2, 3)[:, :62].contiguous(), tb[:3])
-    assert taps.shape == (72, 8, 8) and bias.shape == (8,)  # 9 taps × 8 groups
-    # tap 7 = (dy 2, dx 1), group 3 = channels 24..31
-    assert torch.equal(taps[7 * 8 + 3, :3], tw.permute(1, 0, 2, 3)[:3, 24:32, 2, 1].to(torch.bfloat16))
-    assert float(taps[7 * 8 + 7, :, 6:].float().abs().max()) == 0.0  # channels 62, 63
-    assert float(taps[:, 3:].float().abs().max()) == 0.0
-    assert float(bias[3:].abs().max()) == 0.0
+    bits = lambda t: t.to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)  # noqa: E731
+
+    def unit(lay, c, n, u, co_pad):
+        off = c * co_pad * 128 + (n // 8) * 1024 + (n % 8) * 128 + 16 * (u ^ (n % 8))
+        return lay[off // 2: off // 2 + 8]
+
+    lay = conv_small._weight_layout(tw)
+    assert lay.dtype == np.uint16 and lay.size == 2 * 64 * 64  # G = 1: 9 k-groups, two chunks
+    for n in (0, 9, 63):  # tap 5 = (dy 1, dx 2), input channel 2
+        assert unit(lay, 0, n, 5, 64)[2] == bits(tw[n, 2, 1, 2])
+        assert not unit(lay, 0, n, 5, 64)[3:].any()
+    np.testing.assert_array_equal(unit(lay, 1, 5, 0, 64)[:3], bits(tw[5, :, 2, 2]))  # k-group 8: tap 8
+    assert all(not unit(lay, 1, n, u, 64).any() for n in range(64) for u in range(1, 8))
+    w62 = tw.permute(1, 0, 2, 3)[:, :62].contiguous()  # 62 -> 3: G = 8, rows padded to 8
+    lay = conv_small._weight_layout(w62)
+    assert lay.size == 9 * 8 * 64
+    for n in range(3):  # tap 7 = (dy 2, dx 1), group 3 = channels 24..31: k-group 59
+        np.testing.assert_array_equal(unit(lay, 7, n, 3, 8), bits(w62[n, 24:32, 2, 1]))
+        assert not unit(lay, 7, n, 7, 8)[6:].any()  # channels 62, 63
+    assert all(not unit(lay, c, n, u, 8).any() for c in range(9) for n in range(3, 8) for u in range(8))
 
 
 def test_reference_stock_conv_matches_port_bf16():

@@ -458,7 +458,8 @@ def test_bf16_fused_cascade_on_card(card):
 
 # ---- conv3x3_small (csrc/conv3x3_small.cu) against plain ----
 
-CONV_SHAPES = [(1, 8, 8), (2, 24, 40), (6, 16, 8), (1, 8, 264), (4, 512, 512)]
+CONV_SHAPES = [(1, 8, 8), (2, 24, 40), (6, 16, 8), (1, 8, 264), (4, 512, 512), (1, 720, 1280),
+               (2, 16, 72)]
 CONV_CHANNELS = [(64, 64), (64, 3), (3, 64), (32, 8), (5, 17)]
 
 
@@ -478,8 +479,8 @@ def _one_ulp(got, ref):
 @pytest.mark.parametrize("cin,cout", CONV_CHANNELS)
 @pytest.mark.parametrize("b,h,w", CONV_SHAPES)
 def test_conv3x3_small_kernel_matches_plain(card, b, h, w, cin, cout, relu):
-    if h == 512 and (cin, cout) not in ((64, 64), (64, 3)):
-        pytest.skip("the 512-px case runs the main path's channel counts only")
+    if h >= 512 and (cin, cout) not in ((64, 64), (64, 3), (3, 64)):
+        pytest.skip("the 512-px and 720p cases run the trained channel counts only")
     x = _bf16_rand(h + w + cin, b, cin, h, w).to(card)
     wt = _bf16_rand(cout, cout, cin, 3, 3, scale=0.1).float().to(card)
     bias = _bf16_rand(1, cout, scale=0.1).float().to(card)
@@ -501,6 +502,28 @@ def test_conv3x3_small_kernel_matches_plain(card, b, h, w, cin, cout, relu):
         assert torch.equal(alone[0], got[1])
     fused = conv_small.conv2d_reflect_fused(x_nhwc, wt, bias, relu, impl="pallas_small")
     assert torch.equal(fused, got_nhwc)
+
+
+@pytest.mark.parametrize("nhwc", [False, True], ids=["nchw", "nhwc"])
+@pytest.mark.parametrize("cin,cout", [(64, 64), (3, 64), (64, 3)])
+def test_conv3x3_small_call_launches_one_kernel(card, cin, cout, nhwc):
+    """A call of either entry launches the kernel and nothing else: the
+    kernel lays out the OIHW weights itself (torch.profiler's CUDA events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x = _bf16_rand(cin, 2, cin, 16, 72).to(card)
+    if nhwc:
+        x = x.permute(0, 2, 3, 1).contiguous()
+    wt = _bf16_rand(cout, cout, cin, 3, 3, scale=0.1).float().to(card)
+    bias = _bf16_rand(1, cout, scale=0.1).float().to(card)
+    call = conv_small.conv3x3_reflect_small if nhwc else conv_small.conv3x3_reflect_small_nchw
+    call(x, wt, bias, True)  # built and loaded
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call(x, wt, bias, True)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "conv3x3_small" in kernels[0], kernels
 
 
 def test_conv2d_reflect_fused_routes_by_shape_and_dtype(card):

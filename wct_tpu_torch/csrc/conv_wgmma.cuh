@@ -5,7 +5,9 @@
 // on them, which both kernels run (conv1_2_pool). ns_sqrtm.cu and
 // centered_gram.cu take the tf32 product in its SS form (wgmma_tf32_ss: A
 // from shared memory too, through the same descriptor), with the same
-// partials and folds.
+// partials and folds; conv3x3_small.cu the bf16 one (wgmma_bf16_ss, N = 64 or
+// 8), A a tap's shifted window of its TMA-staged tile, whose descriptor may
+// start at any pixel (the swizzle follows the address bits).
 //
 // wgmma, RS form. A warpgroup (4 warps, 128 threads) issues
 // wgmma.mma_async.m64n64k{16 bf16, 8 tf32}: D [64 x 64] f32 += A [64 x K] .
@@ -121,9 +123,10 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // Keep the compiler from moving accesses of these registers across the
 // wgmma's asynchronous reads and writes.
-__device__ __forceinline__ void fence_regs(float (&r)[32]) {
+template <int NA>
+__device__ __forceinline__ void fence_regs(float (&r)[NA]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(r[i])::"memory");
+  for (int i = 0; i < NA; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
 #define WCT_D32                                                                              \
@@ -145,6 +148,29 @@ __device__ __forceinline__ void wgmma_bf16(float (&d)[32], const uint32_t (&a)[4
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : WCT_D32_OUT(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(scale_d));
+}
+
+// d = (scale_d ? d : 0) + A . B, bf16 operands, K = 16, both from shared
+// memory through descriptors (A's may start anywhere 16-byte aligned inside
+// a swizzle atom: the swizzle follows the address bits).
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[32], uint64_t adesc, uint64_t bdesc,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " WCT_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : WCT_D32_OUT(d)
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_bf16_ss(float (&d)[4], uint64_t adesc, uint64_t bdesc,
+                                              int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %6, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 {%0, %1, %2, %3}"
+      ", %4, %5, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "l"(adesc), "l"(bdesc), "r"(scale_d));
 }
 
 // d = (scale_d ? d : 0) + A . B, tf32 operands (f32 bit patterns), K = 8.
@@ -177,10 +203,11 @@ __device__ __forceinline__ void fence_proxy_async_global() {
   asm volatile("fence.proxy.async.global;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void fold(float (&acc)[32], float (&part)[32]) {
+template <int NA>
+__device__ __forceinline__ void fold(float (&acc)[NA], float (&part)[NA]) {
   fence_regs(part);
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] += part[i];
+  for (int i = 0; i < NA; ++i) acc[i] += part[i];
 }
 
 __device__ __forceinline__ void load_a(uint32_t (&a)[kStepsPerChunk][4], uint32_t addr) {

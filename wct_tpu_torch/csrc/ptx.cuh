@@ -1,11 +1,12 @@
 // Thin wrappers around the PTX instructions the tensor-core kernels use
 // (conv3x3_small.cu, junction.cu, encoder_head.cu, ns_sqrtm.cu,
-// centered_gram.cu): asynchronous copies into shared memory, ldmatrix, and
-// the two mma.sync shapes (bf16 m16n8k16, tf32 m16n8k8), both with f32
-// accumulators; the 3xTF32 step built on the latter; and bf16 packing.
-// sm_80 and later; the port builds for sm_90a.
-// The copies and ldmatrix are volatile, so that they keep their place between
-// barriers; the mma's touch registers only and are left to the scheduler.
+// centered_gram.cu): asynchronous copies into shared memory, ldmatrix and
+// stmatrix (sm_90), and the two mma.sync shapes (bf16 m16n8k16, tf32
+// m16n8k8), both with f32 accumulators; the 3xTF32 step built on the latter;
+// and bf16 packing. The port builds for sm_90a.
+// The copies, ldmatrix and stmatrix are volatile, so that they keep their
+// place between barriers; the mma's touch registers only and are left to the
+// scheduler.
 
 #pragma once
 #include <cuda_bf16.h>
@@ -56,6 +57,40 @@ __device__ __forceinline__ void ldsm_x2(uint32_t addr, uint32_t& r0, uint32_t& r
   asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
                : "=r"(r0), "=r"(r1)
                : "r"(addr));
+}
+
+// Four 8x8 b16 matrices, each stored as 8 rows of 16 bytes (row addresses
+// from lanes 8i .. 8i + 7 for matrix i), transposed: lane l receives elements
+// (2 (l % 4), l / 4) and (2 (l % 4) + 1, l / 4) of each.
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t addr, uint32_t& r0, uint32_t& r1, uint32_t& r2,
+                                              uint32_t& r3) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
+               : "r"(addr));
+}
+
+// The inverse of ldsm_x4: lane l holds elements (l / 4, 2 (l % 4) ..) of each
+// matrix, stored to the 16-byte rows addressed by lanes 8i .. 8i + 7.
+__device__ __forceinline__ void stsm_x4(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                        uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+// The same, each matrix transposed on the way: lane l's pair (l / 4, 2 (l % 4)
+// ..) goes to column l / 4 of rows 2 (l % 4) and 2 (l % 4) + 1.
+__device__ __forceinline__ void stsm_x4_trans(uint32_t addr, uint32_t r0, uint32_t r1, uint32_t r2,
+                                              uint32_t r3) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.trans.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r0), "r"(r1), "r"(r2), "r"(r3)
+               : "memory");
+}
+
+__device__ __forceinline__ void stsm_x2_trans(uint32_t addr, uint32_t r0, uint32_t r1) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x2.trans.shared.b16 [%0], {%1, %2};\n" ::"r"(addr),
+               "r"(r0), "r"(r1)
+               : "memory");
 }
 
 // d += a * b, bf16 operands: a 16x16 (row), b 16x8 (col), d 16x8 f32.

@@ -13,8 +13,10 @@ product exact, the sum in f32 and rounded once, ``act`` ReLU or nothing.
   form (``conv3x3_reflect_pallas``, ``conv3x3_reflect_nhwc_io``),
   ``conv3x3_reflect_small_nchw(x [B, C, H, W], …)`` the NCHW form
   (``conv3x3_reflect_nchw``) on the port's native layout. One kernel
-  body, ``csrc/conv3x3_small.cu``, reads and writes either layout in
-  place; its design and bound are in the source.
+  body, ``csrc/conv3x3_small.cu`` (``wgmma`` from TMA-staged tiles),
+  reads and writes either layout in place and lays the OIHW weights out
+  itself, so a call launches that kernel and nothing else; its design
+  and bound are in the source.
 - ``_conv3x3_small_plain`` is the plain PyTorch version. A CUDA tensor
   launches the kernel or raises, a CPU tensor takes the plain version,
   any other device raises; there is no fallback from kernel to plain.
@@ -49,9 +51,6 @@ MAX_CHANNELS = 64
 # (``conv_pallas.py:74``), kept as the gate so both packages route the
 # same shapes; the CUDA kernel's tile rows and its 8-pixel segments use it.
 ALIGN = 8
-# Output channels up to which the kernel runs one 8-wide n-tile (else 8
-# n-tiles, 64), and the input channels of one k-group.
-_NARROW_MAX, _GROUP = 8, 8
 
 
 def weights_from_hwio(w, b, device: str | torch.device = "cuda"):
@@ -111,32 +110,35 @@ def _check(name: str, x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, nhwc: b
         )
 
 
-def _taps(w: torch.Tensor, b: torch.Tensor):
-    """OIHW weights → the kernel's bf16 ``[k-group, co_pad, 8]`` and the f32
-    bias ``[co_pad]``.
+def _weight_layout(w: torch.Tensor) -> np.ndarray:
+    """The bytes ``csrc/conv3x3_small.cu`` lays out in shared memory from
+    OIHW ``w``, as bf16 bit patterns (``uint16``); its plain statement,
+    which the tests read back as ``wgmma``'s descriptor does.
 
-    K-group ``tap · G + g`` (``G = ⌈C_in/8⌉`` groups of 8 input channels,
-    tap = 3·dy + dx) holds ``w[co, 8g:8g+8, dy, dx]``: the rows an ``mma``
-    B fragment is loaded from. Zero-padded in the input channels of the
-    last group, in ``co`` up to 8 (C_out ≤ 8) or 64, and by one k-group
-    where ``9·G`` is odd (one mma step takes two k-groups).
+    K-group ``kg = tap·G + g`` (``G = ⌈C_in/8⌉`` rounded up to 1, 2, 4 or
+    8, the tile's 16-byte groups a pixel; tap = 3·dy + dx) holds
+    ``w[n, 8g:8g+8, dy, dx]`` of output channel ``n`` in chunk ``kg // 8``
+    (``C_pad`` rows of 128 bytes, ``C_pad`` = 8 for C_out ≤ 8, else 64),
+    16-byte unit ``kg % 8`` of row ``n``, stored at unit ``(kg % 8) ^ (n %
+    8)`` (the 128-byte swizzle), rows in 1 KB atoms of 8. Everything else,
+    channels past C_in and rows past C_out included, is zero.
     """
-    cout, cin = w.shape[0], w.shape[1]
-    co_pad = _NARROW_MAX if cout <= _NARROW_MAX else MAX_CHANNELS
-    groups = -(-cin // _GROUP)
-    t = F.pad(w.to(torch.bfloat16), (0, 0, 0, 0, 0, groups * _GROUP - cin, 0, co_pad - cout))
-    t = t.reshape(co_pad, groups, _GROUP, 9).permute(3, 1, 0, 2).reshape(9 * groups, co_pad, _GROUP)
-    t = F.pad(t, (0, 0, 0, 0, 0, (9 * groups) % 2))
-    return t.contiguous(), F.pad(b.float(), (0, co_pad - cout)).contiguous()
+    cout, cin = w.shape[:2]
+    groups = 1 << (-(-cin // 8) - 1).bit_length()
+    co_pad = 8 if cout <= 8 else MAX_CHANNELS
+    out = np.zeros(-(-9 * groups // 8) * co_pad * 64, np.uint16)
+    bits = w.detach().cpu().to(torch.bfloat16).view(torch.int16).numpy().view(np.uint16)
+    n, ci, dy, dx = np.meshgrid(*(np.arange(k) for k in bits.shape), indexing="ij")
+    kg = (3 * dy + dx) * groups + ci // 8
+    byte = ((kg // 8) * co_pad * 128 + (n // 8) * 1024 + (n % 8) * 128
+            + 16 * ((kg % 8) ^ (n % 8)) + 2 * (ci % 8))
+    out[byte.ravel() // 2] = bits.ravel()
+    return out
 
 
-def conv3x3_small_cuda(x, w, b, relu: bool = False, nhwc: bool = False) -> torch.Tensor:
-    """The CUDA kernel on ``x`` (bf16, contiguous, on the card):
-    ``[B, C_in, H, W]``, or ``[B, H, W, C_in]`` with ``nhwc``; the
-    output has the same layout. Launches on the current stream and does
-    not synchronise; raises on any input the kernel does not take, and
-    if the launch fails."""
-    name = "conv3x3_small_cuda"
+def _launch(name: str, x, w, b, relu: bool, nhwc: bool, defines: tuple[str, ...] = ()):
+    """Check ``x`` and launch ``csrc/conv3x3_small.cu`` (built with
+    ``defines``) on it; the output, as ``conv3x3_small_cuda`` returns it."""
     _check(name, x, w, b, nhwc)
     if x.device.type != "cuda":
         raise ValueError(f"{name} needs a CUDA tensor, got {x.device}")
@@ -151,11 +153,25 @@ def conv3x3_small_cuda(x, w, b, relu: bool = False, nhwc: bool = False) -> torch
     h, wd = (x.shape[1], x.shape[2]) if nhwc else (x.shape[2], x.shape[3])
     shape = (bsz, h, wd, cout) if nhwc else (bsz, cout, h, wd)
     out = torch.empty(shape, dtype=torch.bfloat16, device=x.device)
-    taps, bias = _taps(w, b)
+    # The kernel lays the OIHW f32 weights out itself; weights of another
+    # type are rounded to bf16 first, as the plain version rounds them.
+    if w.dtype != torch.float32:
+        w = w.to(torch.bfloat16).float()
+    w, b = w.contiguous(), b.float().contiguous()
     ptr, integer = ctypes.c_void_p, ctypes.c_int
     _build.launch(name, "conv3x3_small", "conv3x3_small_bf16", [ptr] * 4 + [integer] * 7,
-                  (x.data_ptr(), taps.data_ptr(), bias.data_ptr(), out.data_ptr(),
-                   bsz, h, wd, cin, cout, int(relu), int(nhwc)), x.device)
+                  (x.data_ptr(), w.data_ptr(), b.data_ptr(), out.data_ptr(),
+                   bsz, h, wd, cin, cout, int(relu), int(nhwc)), x.device, defines)
+    return out
+
+
+def conv3x3_small_cuda(x, w, b, relu: bool = False, nhwc: bool = False) -> torch.Tensor:
+    """The CUDA kernel on ``x`` (bf16, contiguous, on the card):
+    ``[B, C_in, H, W]``, or ``[B, H, W, C_in]`` with ``nhwc``; the
+    output has the same layout. Launches on the current stream and does
+    not synchronise; raises on any input the kernel does not take, and
+    if the launch fails."""
+    out = _launch("conv3x3_small_cuda", x, w, b, relu, nhwc)
     conv3x3_small_cuda.launches += 1
     conv3x3_small_cuda.launches_by_layout["nhwc" if nhwc else "nchw"] += 1
     return out
