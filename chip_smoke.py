@@ -25,15 +25,25 @@ is done. Then the
 other transforms: AdaIN unfused in f32 (``main_adain``) and fused in bf16
 (``main_adain_fused``), style-swap at relu5_1 (``main_swap5``), grouped
 WCT with four groups (``main_groups``) and the relative truncation
-(``main_trunc``, one batch). It checks the outputs of each and one
-against another, and runs the CLI five times. Then the serving path at
+(``main_trunc``, one batch). Then the layout rewrites on the f32
+Newton–Schulz-kernel route and the bf16 throughput route:
+``fold_transform`` (``main_fold``: the route's gates and launch counts,
+ms per frame in turns, the relu2_1 and relu1_1 decode stages, the
+folded relu1_1 conv as one grouped conv beside ``decoder_tail_cuda``)
+and ``ring_conv`` (``main_ring``: the same, peak bytes, and per conv
+the share of interior elements equal to the padded conv's). It checks
+the outputs of each and one against another, and runs the CLI nine
+times (``--fold``, ``--preset throughput --ring-conv``, and
+``--checkpoints``/``--vgg-path`` against ``--weights`` on the bundle
+that ``tools/make_bundle`` rebuilds from the per-level files among
+them). Then the serving path at
 1280×720, the stream CLI's default frame: the kernels at the stream's
 shapes (``stream_kernels``), ``StreamStylizer`` strict and pipelined on
 the bf16 fused, the f32 Newton–Schulz-kernel and the ``eigh`` routes
 (``stream``), where a frame alone and in a batch of four part
 (``stream_batch_gap``), ``BucketedStylizer`` on four buckets (``bucketed``) and
-the stream CLI converting an mp4 (``stream_cli``, where cv2 is
-installed). Last, decoder training, which reaches no hand-written
+the stream CLI converting an mp4 on the bundle and on the per-level
+files (``stream_cli``, where cv2 is installed). Last, decoder training, which reaches no hand-written
 kernel: the relu5_1 decoder at batch 8 and crop 256 on a pool sampled on
 the card (``train``: first-step gradients against float64, bf16 against
 f32, remat and save-resume bitwise, ms per step, each conv shape's
@@ -46,7 +56,9 @@ the Newton–Schulz kernel and bf16, each shard bitwise equal to
 ``stylize`` of its images, launches per shard (``mesh_dp``); one
 2048×2048 image split by height, the halo encoder, the combined
 covariances against float64 and each level against the unsharded
-cascade (``mesh_spatial``); the data-parallel train step against
+cascade (``mesh_spatial``); the same image unsharded with and without
+``ring_conv`` (``ring_2048``: ms in turns, peak bytes per level); the
+data-parallel train step against
 ``train_step`` (``mesh_train``); and ``--data-parallel`` through both
 CLIs, two processes of the stylize CLI writing the same bits
 (``mesh_cli``).
@@ -1704,10 +1716,197 @@ def phase_main_trunc(params, content, style):
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
 
 
+# The fold and the ring rewrite the same math, so the f32 route is held to
+# its unfolded, padded output by phase main's gate against plain.
+REWRITE_Q99_LIMIT = 5e-3
+
+
+def rewrite_gates(params, content, label, cfg, cache, out, counts, base_counts, out_f32,
+                  cache_f32, cfg_f32) -> dict:
+    """The gates of a rewritten route against its own route: the launch
+    counts, route_checks, and q99 ≤ REWRITE_Q99_LIMIT against the f32
+    output (f32), or main_bf16's bars against the f32 cascade (bf16: the
+    median, and per level, teacher-forced on the rewritten route's running
+    image, q99 against the f32 level)."""
+    check(counts == base_counts, f"{label} launched {counts}, its route {base_counts}")
+    route_checks(params, content, cache, cfg, out, label)
+    d = (out - out_f32).abs().flatten()
+    row = {"vs_f32_median": float(d.median()), "vs_f32_q99": float(torch.quantile(d[::3], 0.99)),
+           "vs_f32_max": float(d.max())}
+    if cfg.dtype == torch.float32:
+        check(row["vs_f32_q99"] <= REWRITE_Q99_LIMIT, f"{label} vs its f32 route {row}")
+        return row
+    check(row["vs_f32_median"] < COMPOSED_MEDIAN_LIMIT, f"{label} vs f32 {row}")
+    levels, x = {}, torch.as_tensor(content[:MICROBATCH], device=DEV)
+    for level in cfg.relu_targets:
+        y16 = cascade.stylize(params, x, cache, ALPHA, dataclasses.replace(cfg, relu_targets=(level,)))
+        y32 = cascade.stylize(params, x, cache_f32, ALPHA,
+                              dataclasses.replace(cfg_f32, relu_targets=(level,)))
+        dl = (y16 - y32).abs().flatten()
+        levels[level] = {"q99": float(torch.quantile(dl, 0.99)), "median": float(dl.median())}
+        check(levels[level]["q99"] < LEVEL_Q99_LIMIT, f"{label} {level} vs f32 {levels[level]}")
+        x = y16
+    row["levels_vs_f32_teacher_forced"] = levels
+    return row
+
+
+def fold_decode_ms(params, batch, cache, cfg, cfg_fold, runs=3) -> dict:
+    """relu2_1 and relu1_1, teacher-forced on the unfolded route's running
+    image: the unfolded transform and decode, the fold's affine and folded
+    decode, ms each; at relu1_1 also the folded 64→3 conv as the fold runs
+    it (one grouped conv) and through ``decoder_tail_cuda`` on the same
+    folded weights."""
+    enc, out = params["encoder"], {}
+    with torch.no_grad():
+        x = to_nchw(batch).to(cfg.dtype)
+        for level in cfg.relu_targets:
+            feats = vgg.encode_multi_nchw(enc, x, (level,), compose_pre=cfg.compose_conv0)[level]
+            dec_p = params["decoders"][level]
+            tr = cascade._transform_level(feats, level, cache[level], ALPHA, cfg)
+            if level in ("relu2_1", "relu1_1"):
+                m, bias = cascade._level_affine(feats, level, cache[level], ALPHA, cfg_fold)
+                row = {
+                    "unfolded_transform_ms": cuda_ms(
+                        lambda: cascade._transform_level(feats, level, cache[level], ALPHA, cfg), runs),
+                    "unfolded_decode_ms": cuda_ms(lambda: decoder.decode_nchw(dec_p, tr, level), runs),
+                    "fold_affine_ms": cuda_ms(
+                        lambda: cascade._level_affine(feats, level, cache[level], ALPHA, cfg_fold), runs),
+                    "folded_decode_ms": cuda_ms(
+                        lambda: decoder.decode_folded_nchw(dec_p, feats, level, m, bias), runs),
+                }
+                if level == "relu1_1":
+                    conv = dec_p["dec_conv1_1"]
+                    wf, bf = decoder.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
+                    grouped = convs.conv2d_reflect_perimage_nchw(feats, wf, bf)
+                    tail = junction.decoder_tail_cuda(feats.contiguous(), wf, bf)
+                    row.update(
+                        grouped_conv_ms=cuda_ms(lambda: convs.conv2d_reflect_perimage_nchw(feats, wf, bf), runs),
+                        decoder_tail_cuda_ms=cuda_ms(
+                            lambda: junction.decoder_tail_cuda(feats.contiguous(), wf, bf), runs),
+                        tail_vs_grouped_max_abs=float((tail.float() - grouped.float()).abs().max()))
+                out[level] = row
+            x = decoder.decode_nchw(dec_p, tr, level)
+    return out
+
+
+def phase_rewrite(params, content, style, routes, field, extra):
+    """One layout rewrite, ``field`` (``fold_transform`` or ``ring_conv``),
+    on the f32 Newton–Schulz-kernel route and the bf16 throughput route:
+    each through ``drive`` with its route's launch counts and gates
+    (``rewrite_gates``), its distance from the route's own output, ms per
+    frame off and on in turns (off, on, on, off), and whatever
+    ``extra(cfg, cfg_on, cache, batch, off, on)`` measures."""
+    n_chunks = -(-N_CONTENT // MICROBATCH)
+    cfg_f32, cache_f32, out_f32 = routes["f32_ns_pallas"]
+    rows = {}
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    for route, (cfg, _, out_route) in routes.items():
+        cfg_on = dataclasses.replace(cfg, **{field: True})
+        cache, out, counts, wall = drive(params, content, style, cfg_on)
+        base = {**NO_LAUNCHES, "centered_gram": 5 * (1 + n_chunks),
+                "ns_sqrtm": 5 * (1 + n_chunks) if cfg.method == "newton_schulz_pallas" else 0}
+        row = rewrite_gates(params, content, f"{field} {route}", cfg_on, cache, out, counts, base,
+                            out_f32, cache_f32, cfg_f32)
+        d = (out - out_route).abs().flatten()
+        row.update(launches=counts, first_run_wall_s=wall, batch1_vs_batch6_bitwise_equal=True,
+                   vs_off_q99=float(torch.quantile(d[::3], 0.99)), vs_off_max=float(d.max()),
+                   vs_off_bitwise_share=float((d == 0).float().mean()))
+        off = lambda: cascade.stylize(params, batch, cache, ALPHA, cfg)  # noqa: E731
+        on = lambda: cascade.stylize(params, batch, cache, ALPHA, cfg_on)  # noqa: E731
+        t = [cuda_ms(fn, 3) / MICROBATCH for fn in (off, on, on, off)]
+        row.update(ms_per_frame_b4=(t[1] + t[2]) / 2, ms_per_frame_b4_off=(t[0] + t[3]) / 2,
+                   ms_per_frame_b4_turns_off_on_on_off=t, **extra(cfg, cfg_on, cache, batch, off, on))
+        rows[route] = row
+    emit({"phase": "main_" + field.split("_")[0], "card": card_name(), "size": SIZE,
+          "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA, "routes": rows})
+
+
+def fold_extra(params):
+    """main_fold's own rows: the relu2_1 and relu1_1 decode stages
+    (``fold_decode_ms``) and the gap of direct ``stylize`` between batch 1
+    and batch 4 (printed, not gated: the folded conv's per-image weights
+    make it depend on the submitted batch shape)."""
+    def extra(cfg, cfg_on, cache, batch, off, on):
+        one = cascade.stylize(params, batch[:1], cache, ALPHA, cfg_on)
+        return {"direct_stylize_b1_vs_b4_max_abs": float((one[0] - on()[0]).abs().max()),
+                "decode_stages_b4_ms": fold_decode_ms(params, batch, cache, cfg, cfg_on)}
+    return extra
+
+
+def ring_extra(params):
+    """main_ring's own rows: the card's peak bytes of a batch-4 call each
+    way, and per conv the share of interior elements equal bitwise to the
+    padded conv's (printed, not gated: cuDNN may choose another algorithm
+    for the SAME shape)."""
+    def extra(cfg, cfg_on, cache, batch, off, on):
+        return {"peak_bytes_b4_off": peak_bytes(off), "peak_bytes_b4": peak_bytes(on),
+                "interior_bitwise_share_per_conv": ring_interior_shares(params, batch, cfg.dtype)}
+    return extra
+
+
+def ring_interior_shares(params, batch, dtype) -> dict:
+    """Per conv of the encoder trunk to relu5_1, on the map the trunk
+    hands it: the share of interior output elements (the p-pixel border
+    left out) where the ring conv gives the padded conv's bits."""
+    shares, x = {}, to_nchw(batch).to(dtype)
+    with torch.no_grad():
+        for spec in vgg.ENCODER_LAYERS:
+            if spec[0] == "pool":
+                x = convs.maxpool2_nchw(x)
+                continue
+            p = params["encoder"][spec[1]]
+            y = conv2d_reflect_nchw(x, p["w"], p["b"])
+            if spec[4] == 3:
+                r = convs.conv2d_reflect_ring_nchw(x, p["w"], p["b"])
+                key = f"{spec[1]} {list(x.shape)}->{spec[3]}"
+                shares[key] = float((r[..., 1:-1, 1:-1] == y[..., 1:-1, 1:-1]).float().mean())
+            x = torch.relu(y) if spec[0] == "conv" else y
+    return shares
+
+
+def peak_bytes(fn) -> int:
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated()
+
+
+def per_level_files(work: Path) -> tuple[Path, list[Path], Path]:
+    """``weights/bundle.npz`` as ``--vgg-path`` and ``--checkpoints`` take
+    it: an encoder file and one decoder file per level (relu5_1 in the
+    train-state form), then the bundle the port's ``make_bundle`` builds
+    back from them, checked leaf for leaf against the shipped one (as
+    loaded: its float16 leaves come back float32)."""
+    work.mkdir(parents=True, exist_ok=True)
+    tree = checkpoint.load_pytree(ROOT / "weights" / "bundle.npz")
+    vgg_path = work / "vgg.npz"
+    checkpoint.save_pytree(vgg_path, {"encoder": tree["encoder"]})
+    ckpts = []
+    for t in cascade.DEFAULT_TARGETS:
+        ckpts.append(work / f"decoder_{t}.npz")
+        dec = tree["decoders"][t]
+        checkpoint.save_pytree(ckpts[-1], {"params": dec} if t == "relu5_1" else dec)
+    rebuilt = work / "rebuilt.npz"
+    cmd = [sys.executable, "-m", "wct_tpu_torch.tools.make_bundle", "--encoder", str(vgg_path),
+           *[f"--decoder={t}={c}" for t, c in zip(cascade.DEFAULT_TARGETS, ckpts)], str(rebuilt)]
+    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"make_bundle failed:\n{proc.stdout}\n{proc.stderr}")
+    want, got = checkpoint._flatten(tree), checkpoint._flatten(checkpoint.load_pytree(rebuilt))
+    check(want.keys() == got.keys() and all(
+        want[k].dtype == got[k].dtype and np.array_equal(want[k], got[k]) for k in want),
+        "the rebuilt bundle differs from weights/bundle.npz")
+    return vgg_path, ckpts, rebuilt
+
+
 def phase_cli():
     """The CLI as users run it: the two routes of earlier slices, then
     style-swap with luminance-only output and the style beside it, AdaIN
-    over a blend of two styles, and CORAL, one pair at a time."""
+    over a blend of two styles, CORAL one pair at a time, ``--fold``, the
+    throughput preset with ``--ring-conv``, and the trained weights as
+    per-level files (``--checkpoints`` with ``--vgg-path``), which must
+    write the bytes that ``--weights`` writes on the bundle ``make_bundle``
+    rebuilds from those files."""
     work = ROOT / "build" / "chip_smoke"
     c_dir, s_dir, o_dir = work / "content", work / "styles", work / "out"
     for d in (c_dir, s_dir, o_dir):
@@ -1721,19 +1920,26 @@ def phase_cli():
     images.save_img(s_dir / "s0.png", rng.random((256, 320, 3)))
     images.save_img(s_dir / "s1.png", rng.random((288, 256, 3)) * 0.5 + 0.3)
     one, two = work / "style.png", s_dir
+    vgg_path, ckpts, rebuilt = per_level_files(work / "per_level")
+    bundle = ["--weights", "weights/bundle.npz"]
+    per_level = ["--vgg-path", str(vgg_path), "--checkpoints", *map(str, ckpts)]
+    ns = ["--method", "newton_schulz_pallas"]
     runs = [  # flags, styles, outputs, their shape
-        (["--method", "newton_schulz_pallas"], one, 2, (300, 256, 3)),
-        (["--preset", "throughput"], one, 2, (300, 256, 3)),
-        (["--swap5", "--method", "newton_schulz_pallas", "--keep-colors", "--concat"], one, 2,
-         (300, 256 + 300, 3)),
-        (["--adain", "--interp-weights", "0.5", "0.5"], two, 2, (300, 256, 3)),
-        (["--coral"], two, 4, (300, 256, 3)),
+        ([*bundle, *ns], one, 2, (300, 256, 3)),
+        ([*bundle, "--preset", "throughput"], one, 2, (300, 256, 3)),
+        ([*bundle, "--swap5", *ns, "--keep-colors", "--concat"], one, 2, (300, 256 + 300, 3)),
+        ([*bundle, "--adain", "--interp-weights", "0.5", "0.5"], two, 2, (300, 256, 3)),
+        ([*bundle, "--coral"], two, 4, (300, 256, 3)),
+        ([*bundle, "--fold"], one, 2, (300, 256, 3)),
+        ([*bundle, "--preset", "throughput", "--ring-conv"], one, 2, (300, 256, 3)),
+        ([*per_level, *ns], one, 2, (300, 256, 3)),
+        (["--weights", str(rebuilt), *ns], one, 2, (300, 256, 3)),
     ]
+    written = []
     for flags, styles, n_out, shape in runs:
         for f in o_dir.iterdir():
             f.unlink()
-        cmd = [sys.executable, "-m", "wct_tpu_torch.cli.stylize",
-               "--weights", "weights/bundle.npz", *flags,
+        cmd = [sys.executable, "-m", "wct_tpu_torch.cli.stylize", *flags,
                "--content-path", str(c_dir), "--style-path", str(styles),
                "--out-path", str(o_dir), "--content-size", "256", "--batch-size", "2",
                "--alpha", str(ALPHA), "--device", DEV]
@@ -1746,8 +1952,14 @@ def phase_cli():
         imgs = [images.get_img(p) for p in outs]
         check(all(i.shape == shape for i in imgs), f"CLI {flags} output shapes {[i.shape for i in imgs]}")
         check(all(np.isfinite(i).all() and i.std() > 0.01 for i in imgs), "CLI wrote a flat image")
-        emit({"phase": "cli", "flags": flags, "seconds": secs,
+        written.append([Path(p).read_bytes() for p in outs])
+        emit({"phase": "cli", "flags": [str(Path(f).relative_to(ROOT)) if f.startswith(str(ROOT)) else f
+                                        for f in flags], "seconds": secs,
               "outputs": [str(Path(p).relative_to(ROOT)) for p in outs]})
+    check(written[-2] == written[-1],
+          "--checkpoints/--vgg-path wrote other bytes than --weights on the rebuilt bundle")
+    emit({"phase": "cli", "checkpoints_equal_weights_on_rebuilt_bundle": True,
+          "rebuilt_bundle_equals_shipped_leaf_for_leaf": True})
 
 
 # The stream's frame: the stream CLI's default size and BASELINE.json's
@@ -2151,7 +2363,9 @@ def phase_bucketed(params):
 def phase_stream_cli():
     """The stream CLI's offline conversion as users run it: a seeded 1280×720
     mp4 of 16 frames through ``python -m wct_tpu_torch.cli.stream`` with the
-    throughput preset in batches of 4; every frame must be written."""
+    throughput preset in batches of 4, on the bundle and then on the
+    per-level files of phase cli (``--checkpoints`` with ``--vgg-path``);
+    every frame must be written."""
     import importlib.util
 
     if importlib.util.find_spec("cv2") is None:
@@ -2161,34 +2375,45 @@ def phase_stream_cli():
 
     work = ROOT / "build" / "chip_smoke" / "stream"
     work.mkdir(parents=True, exist_ok=True)
-    src, out, style = work / "in.mp4", work / "out.mp4", work / "style.png"
+    src, style = work / "in.mp4", work / "style.png"
     rng = np.random.default_rng(SEED + 16)
     writer = cv2.VideoWriter(str(src), cv2.VideoWriter_fourcc(*"mp4v"), 30, (STREAM_W, STREAM_H))
     for _ in range(16):
         writer.write((rng.random((STREAM_H, STREAM_W, 3)) * 255).astype(np.uint8))
     writer.release()
     images.save_img(style, rng.random((SIZE, SIZE, 3)))
-    out.unlink(missing_ok=True)
-    cmd = [sys.executable, "-m", "wct_tpu_torch.cli.stream", "--weights", "weights/bundle.npz",
-           "--video", str(src), "--out", str(out), "--no-display", "--batch-size", "4",
-           "--preset", "throughput", "--style-path", str(style), "--alpha", str(ALPHA),
-           "--width", str(STREAM_W), "--height", str(STREAM_H), "--device", DEV]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
-    secs = time.perf_counter() - t0
-    check(proc.returncode == 0, f"stream CLI failed (rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    cap = cv2.VideoCapture(str(out))
-    shapes = []
-    while True:
-        ok, frame = cap.read()
-        if not ok:
-            break
-        shapes.append(frame.shape)
-    cap.release()
-    check(len(shapes) == 16 and all(s == (STREAM_H, STREAM_W, 3) for s in shapes),
-          f"stream CLI wrote {len(shapes)} frames of {set(shapes)}, expected 16 of 720x1280")
-    emit({"phase": "stream_cli", "cv2": cv2.__version__, "frames": len(shapes), "seconds": secs,
-          "cli_says": proc.stdout.strip().splitlines()[-1]})
+    per_level = ROOT / "build" / "chip_smoke" / "per_level"
+    ckpts = [str(per_level / f"decoder_{t}.npz") for t in cascade.DEFAULT_TARGETS]
+    frames = {}
+    for name, weights in (("weights", ["--weights", "weights/bundle.npz"]),
+                          ("checkpoints", ["--vgg-path", str(per_level / "vgg.npz"),
+                                           "--checkpoints", *ckpts])):
+        out = work / f"out_{name}.mp4"
+        out.unlink(missing_ok=True)
+        cmd = [sys.executable, "-m", "wct_tpu_torch.cli.stream", *weights,
+               "--video", str(src), "--out", str(out), "--no-display", "--batch-size", "4",
+               "--preset", "throughput", "--style-path", str(style), "--alpha", str(ALPHA),
+               "--width", str(STREAM_W), "--height", str(STREAM_H), "--device", DEV]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=600)
+        secs = time.perf_counter() - t0
+        check(proc.returncode == 0,
+              f"stream CLI ({name}) failed (rc {proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+        cap = cv2.VideoCapture(str(out))
+        frames[name] = []
+        while True:
+            ok, frame = cap.read()
+            if not ok:
+                break
+            frames[name].append(frame)
+        cap.release()
+        shapes = [f.shape for f in frames[name]]
+        check(len(shapes) == 16 and all(sh == (STREAM_H, STREAM_W, 3) for sh in shapes),
+              f"stream CLI ({name}) wrote {len(shapes)} frames of {set(shapes)}, expected 16 of 720x1280")
+        emit({"phase": "stream_cli", "weights": name, "cv2": cv2.__version__, "frames": len(shapes),
+              "seconds": secs, "cli_says": proc.stdout.strip().splitlines()[-1]})
+    emit({"phase": "stream_cli", "checkpoints_frames_equal_weights_frames": all(
+        np.array_equal(a, b) for a, b in zip(frames["weights"], frames["checkpoints"]))})
 
 
 # Decoder training at relu5_1, the deepest decoder (its feature term
@@ -2770,6 +2995,45 @@ def phase_mesh_spatial(params, style):
           "alpha": ALPHA, "shards": MESH_SHARDS, "runs": rows})
 
 
+def phase_ring_2048(params, style):
+    """mesh_spatial's unsharded 2048×2048 image, f32 with the Newton–Schulz
+    kernel, padded and with ``ring_conv``: ms in turns, the card's peak
+    bytes of the ring's first call (which chooses its SAME convs), of the
+    whole cascade and of each level alone (teacher-forced on the padded
+    route's running image), and the ring's distance from the padded output
+    (q99 ≤ REWRITE_Q99_LIMIT)."""
+    img = torch.as_tensor(np.random.default_rng(SEED + 31).random(
+        (1, MESH_SPATIAL_SIZE, MESH_SPATIAL_SIZE, 3), dtype=np.float32), device=DEV)
+    cfg = cascade.CascadeConfig(method="newton_schulz_pallas")
+    cfg_ring = dataclasses.replace(cfg, ring_conv=True)
+    caches = {c: cascade.precompute_style(params["encoder"], style, c) for c in (cfg, cfg_ring)}
+    run = {c: (lambda c=c: cascade.stylize(params, img, caches[c], ALPHA, c)) for c in (cfg, cfg_ring)}
+    out = run[cfg]()
+    # The ring's first call meets its SAME shapes for the first time, so
+    # conv_by_shape times both implementations of each inside it.
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out_ring = run[cfg_ring]()
+    torch.cuda.synchronize()
+    row = {"peak_bytes_ring_first_call": torch.cuda.max_memory_allocated(),
+           "vs_padded": gap(out_ring, out)}
+    check(row["vs_padded"]["q99"] <= REWRITE_Q99_LIMIT, f"ring_2048 vs padded {row}")
+    del out, out_ring
+    row["ms_padded"], row["ms_ring"] = in_turns(run[cfg], run[cfg_ring], runs=1)
+    row["peak_bytes_padded"], row["peak_bytes_ring"] = peak_bytes(run[cfg]), peak_bytes(run[cfg_ring])
+    levels, x = {}, img
+    for level in cfg.relu_targets:
+        one = {c: dataclasses.replace(c, relu_targets=(level,)) for c in (cfg, cfg_ring)}
+        levels[level] = {
+            "peak_bytes_padded": peak_bytes(lambda: cascade.stylize(params, x, caches[cfg], ALPHA, one[cfg])),
+            "peak_bytes_ring": peak_bytes(
+                lambda: cascade.stylize(params, x, caches[cfg_ring], ALPHA, one[cfg_ring]))}
+        x = cascade.stylize(params, x, caches[cfg], ALPHA, one[cfg])
+    row["levels_alone"] = levels
+    emit({"phase": "ring_2048", "card": card_name(), "size": MESH_SPATIAL_SIZE, "alpha": ALPHA,
+          "config": "CascadeConfig(method='newton_schulz_pallas'), ring_conv off and on", **row})
+
+
 def by_hand_step_grads(tree, enc, batch, cfg, n) -> list:
     """The four-shard step's all-reduce written out once more: each of
     ``n`` ``tensor_split`` shards' gradients, weighted by b_s/B and summed
@@ -2963,6 +3227,11 @@ def main() -> int:
     phase_main_swap5(params, content, style, cache, cfg)
     phase_main_groups(params, content, style, name)
     phase_main_trunc(params, content, style)
+    routes = {"f32_ns_pallas": (cfg, cache, out_unfused),
+              "bf16_throughput": (cfg_bf16, cache_bf16, out_bf16)}
+    phase_rewrite(params, content, style, routes, "fold_transform", fold_extra(params))
+    phase_rewrite(params, content, style, routes, "ring_conv", ring_extra(params))
+    del routes
     phase_cli()
     phase_stream_kernels(params, style, name)
     phase_stream(params, name)
@@ -2974,6 +3243,7 @@ def main() -> int:
     phase_train_cli()
     phase_mesh_dp(params, style)
     phase_mesh_spatial(params, style)
+    phase_ring_2048(params, style)
     phase_mesh_train(params)
     phase_mesh_cli()
     small = "wct_tpu_torch/csrc/conv3x3_small.cu"

@@ -183,19 +183,21 @@ def test_config_same_value_errors_as_reference(kw):
 )
 def test_config_unported_options_raise_not_implemented(setup, kw):
     """Options the port does not carry raise, naming their ROADMAP.md
-    item. Those it carries build: bf16 with ``fuse_junction`` (held
-    against the reference in tests/test_torch_junction_bf16.py), and
-    AdaIN, swap5, grouped WCT and the soft and relative truncation modes,
-    each held here to the reference on one level at α=0.6, relu5_1 for
-    the swap and relu1_1 for the others (measured q99 ≤ 8.1e-7, max ≤
-    1.6e-6; every level in tests/test_torch_cascade_variants.py and
-    test_torch_wct_modes.py)."""
+    item: pack2 and its scopes. Those it carries build: bf16 with
+    ``fuse_junction`` (held against the reference in
+    tests/test_torch_junction_bf16.py), and ``fold_transform``,
+    ``ring_conv``, AdaIN, swap5, grouped WCT and the soft and relative
+    truncation modes, each held here to the reference on one level at
+    α=0.6, relu5_1 for the swap and relu1_1 for the others (measured q99
+    ≤ 8.1e-7, max ≤ 1.6e-6; every level in
+    tests/test_torch_cascade_variants.py, test_torch_wct_modes.py and
+    test_torch_fold_ring.py)."""
     jcfg = jcascade.CascadeConfig(**kw)  # legal in the reference
     if kw == dict(compute_dtype="bfloat16", fuse_junction=True):
         cfg = tcascade.CascadeConfig(**kw)
         assert cfg.fuse_junction and cfg.compute_dtype == "bfloat16"
         return
-    if not (kw.keys() & {"pack2_junction", "fold_transform", "ring_conv"}):
+    if "pack2_junction" not in kw:
         jparams, tparams, content, style = setup
         one = dict(kw, relu_targets=("relu5_1",) if kw.get("swap5") else ("relu1_1",))
         ref = np.asarray(jcascade.stylize_pair(

@@ -7,6 +7,7 @@ held to the reference CLI's.
 """
 
 import argparse
+import dataclasses
 from pathlib import Path
 
 import numpy as np
@@ -20,6 +21,7 @@ from wct_tpu_torch.cli import stylize as tstylize
 from wct_tpu_torch.utils import colors, images
 
 ROOT = Path(__file__).resolve().parent.parent
+BUNDLE = ROOT / "weights" / "bundle.npz"
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -142,12 +144,15 @@ def _dests(module, monkeypatch):
 
 
 def test_flags_the_port_does_not_carry_raise(tiny_imgs, monkeypatch):
-    """Every flag of the reference's stylize CLI is accepted but the two that
-    read converted checkpoints; those the port does not carry raise, naming
-    their ROADMAP.md item; illegal combinations give the reference's error.
-    ``--data-parallel`` is carried: on the CPU (a mesh of one) it writes the
-    same files as the run without it, and refuses ``--coral`` as the
-    reference does."""
+    """Every flag of the reference's stylize CLI is accepted, and none
+    raises: ``--fold`` and ``--ring-conv`` set their fields and run. Each
+    computes the same math and rounds otherwise, so on the trained bundle
+    (random decoders amplify rounding chaotically, DESIGN.md §2) its PNGs
+    are within one 8-bit level of the run without it. Illegal
+    combinations give the reference's
+    error. ``--data-parallel`` is carried: on the CPU (a mesh of one) it
+    writes the same files as the run without it, and refuses ``--coral``
+    as the reference does."""
     c_dir, s_dir, o_dir = tiny_imgs
     flags = ("--relu-targets", "relu2_1", "relu1_1", "--content-size", "32")
     dp = _main(c_dir, s_dir, o_dir, *flags, "--data-parallel")
@@ -157,9 +162,14 @@ def test_flags_the_port_does_not_carry_raise(tiny_imgs, monkeypatch):
         assert Path(a).read_bytes() == Path(b).read_bytes()
     with pytest.raises(SystemExit, match="--coral processes one pair"):
         _main(c_dir, s_dir, o_dir, "--data-parallel", "--coral")
-    for flag in ("--fold", "--ring-conv"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-            _config(tcommon, [flag])
+    for flag, field in (("--fold", "fold_transform"), ("--ring-conv", "ring_conv")):
+        assert _config(tcommon, [flag]) == dataclasses.replace(_config(tcommon, []), **{field: True})
+        outs = _main(c_dir, s_dir, o_dir.with_name(field), *flags, "--weights", str(BUNDLE), flag)
+        base = _main(c_dir, s_dir, o_dir.with_name(f"{field}_off"), *flags, "--weights", str(BUNDLE))
+        assert [Path(p).name for p in outs] == ["c1_s1.png", "c1_s2.png"]
+        for a, b in zip(outs, base):
+            d = np.abs(images.get_img(a).astype(np.float64) - images.get_img(b))
+            assert d.max() <= 1 / 255 + 1e-6
     argv = ["--rel-trunc", "1e-3", "--soft-trunc"]
     with pytest.raises(ValueError) as ref:
         _config(jcommon, argv)
@@ -167,4 +177,4 @@ def test_flags_the_port_does_not_carry_raise(tiny_imgs, monkeypatch):
         _config(tcommon, argv)
     assert str(got.value) == str(ref.value)
     missing = _dests(jstylize, monkeypatch) - _dests(tstylize, monkeypatch)
-    assert missing == {"checkpoints", "vgg_path"}
+    assert missing == set()

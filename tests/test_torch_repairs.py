@@ -10,6 +10,7 @@
   (``utils/device.values_on``) with the bits ``torch.as_tensor`` gave.
 """
 
+import dataclasses
 import json
 
 import numpy as np
@@ -205,11 +206,18 @@ PRESET_ARGS = [
     ("--preset", "balanced", "--dtype", "bfloat16", "--method", "newton_schulz"),
     ("--preset", "fidelity", "--compose-conv0"),
     ("--method", "newton_schulz_pallas"),
+    ("--fold",),
+    ("--preset", "throughput", "--fold"),
+    ("--preset", "throughput", "--no-fold"),
+    ("--preset", "balanced", "--no-fold", "--ring-conv"),
 ]
 
 
 def _resolved(cfg):
-    return cfg.compute_dtype, cfg.method, cfg.compose_conv0
+    """Every field but ``pack2_junction``: the reference's throughput
+    preset sets it (unless ``--fold``), the port's has no pack2."""
+    return {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if f.name != "pack2_junction"}
 
 
 @pytest.mark.parametrize("flags", PRESET_ARGS, ids=lambda f: "_".join(f).replace("--", "") or "none")

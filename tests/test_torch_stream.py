@@ -324,14 +324,13 @@ def _options(parser_fn, argv):
 
 
 def test_every_reference_option_exists_with_its_default():
-    """Every option of the reference's stream parser, with its default, but
-    ``--checkpoints`` / ``--vgg-path``, which read converted checkpoints
-    (ROADMAP.md queue 1 item 11) and which no CLI of the port has yet.
-    ``--method`` and ``--dtype`` are also read back through
-    ``config_from_args``, as the configuration resolves them."""
+    """Every option of the reference's stream parser, with its default,
+    ``--checkpoints`` / ``--vgg-path`` included. ``--method`` and
+    ``--dtype`` are also read back through ``config_from_args``, as the
+    configuration resolves them."""
     argv = ["--style-path", "s.png"]
     ref, port = _options(jstream_cli.parse_args, argv), _options(stream_cli.parse_args, argv)
-    assert set(ref) - set(port) == {"checkpoints", "vgg_path"}
+    assert set(ref) - set(port) == set()
     assert set(port) - set(ref) == {"device"} and port["device"] == "cuda"
     cfg = common.config_from_args(stream_cli.parse_args(argv))
     resolved = {**port, "method": cfg.method, "dtype": cfg.compute_dtype}

@@ -1,15 +1,14 @@
 """Shared CLI plumbing: flags → CascadeConfig, device, weight loading.
 
-The flags are those of ``wct_tpu/cli/common.py`` but ``--checkpoints``
-and ``--vgg-path`` (they read converted checkpoints, ROADMAP.md queue 1
-item 11), plus ``--device``. ``--fold`` and ``--ring-conv`` are
-accepted and raise ``NotImplementedError`` naming item 11, as their
-``CascadeConfig`` fields do. ``--preset`` keeps the JAX package's table
-except for ``pack2_junction``, a rewrite for the TPU's 128 lanes that
-the throughput preset sets there and that is not ported, and its
-precedence (``wct_tpu/cli/common.py:203-220``): a preset overwrites
-``--dtype`` and ``--method``, and an explicit ``--[no-]compose-conv0``
-still wins over it.
+The flags are those of ``wct_tpu/cli/common.py``, plus ``--device``.
+``--preset`` keeps the JAX package's table except for ``pack2_junction``,
+a rewrite for the TPU's 128 lanes that the throughput preset sets there
+and that is not ported, and its precedence
+(``wct_tpu/cli/common.py:203-220``): a preset overwrites ``--dtype`` and
+``--method``, and an explicit ``--[no-]compose-conv0`` still wins over
+it. ``--checkpoints`` with ``--vgg-path`` reads one decoder file per
+level and the encoder from another, as the reference's ``load_params``
+does (``:243-275``).
 """
 
 from __future__ import annotations
@@ -17,6 +16,7 @@ from __future__ import annotations
 import argparse
 
 from wct_tpu_torch.models import cascade
+from wct_tpu_torch.tools.make_bundle import validate_decoder
 from wct_tpu_torch.train import checkpoint
 from wct_tpu_torch.utils.device import resolve_device
 
@@ -27,6 +27,22 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
         default=None,
         help="npz bundle with {'encoder':..., 'decoders': {relu_target: ...}} "
         "(e.g. weights/bundle.npz). Omit for random weights (smoke tests).",
+    )
+    p.add_argument(
+        "--checkpoints",
+        nargs="+",
+        default=None,
+        help="per-level decoder npz files, one per --relu-targets entry in "
+        "the same order (reference stylize.py --checkpoints, which took "
+        "one TF checkpoint dir per level — convert those with "
+        "tools/convert_tf_ckpt first). Alternative to a --weights bundle; "
+        "needs --vgg-path for the encoder.",
+    )
+    p.add_argument(
+        "--vgg-path",
+        default=None,
+        help="encoder weights npz (reference --vgg-path took the t7; "
+        "convert it once with tools/convert_t7). Used with --checkpoints.",
     )
     p.add_argument(
         "--relu-targets",
@@ -100,14 +116,17 @@ def add_model_flags(p: argparse.ArgumentParser) -> None:
         action=argparse.BooleanOptionalAction,
         default=None,
         help="fold the per-image WCT/AdaIN affine into the decoder's "
-        "first conv at every level up to 128 channels: not ported "
-        "(ROADMAP.md queue 1 item 11)",
+        "first conv at every level up to 128 channels (relu2_1, relu1_1), "
+        "which then runs as one grouped conv with per-image weights; no "
+        "preset enables it",
     )
     p.add_argument(
         "--ring-conv",
         action="store_true",
-        help="reflect convs without a padded copy: not ported "
-        "(ROADMAP.md queue 1 item 11)",
+        help="reflect convs without a padded copy: the bulk of every "
+        "encoder and decoder conv runs zero-padded (SAME) and the "
+        "one-pixel border is recomputed from thin reflect-padded strips. "
+        "The same math",
     )
     p.add_argument(
         "--preset",
@@ -202,9 +221,38 @@ def config_from_args(args: argparse.Namespace) -> cascade.CascadeConfig:
 
 
 def load_params(args: argparse.Namespace) -> dict:
-    """Load the weight bundle onto ``args.device``, or random-init there."""
+    """Load the weight bundle, or per-level checkpoints, onto
+    ``args.device``, or random-init there."""
     targets = tuple(args.relu_targets)
     device = resolve_device(args.device)
+    ckpts = args.checkpoints
+    if ckpts:
+        # One decoder file per --relu-targets entry, paired by position,
+        # each checked in its files' own HWIO layout before it is moved.
+        if args.weights:
+            raise SystemExit("--checkpoints and --weights are exclusive")
+        if len(ckpts) != len(targets):
+            raise SystemExit(
+                f"--checkpoints got {len(ckpts)} files for "
+                f"{len(targets)} --relu-targets; they pair by position"
+            )
+        if not args.vgg_path:
+            raise SystemExit("--checkpoints needs --vgg-path for the encoder")
+        enc = checkpoint.load_pytree(args.vgg_path)
+        decoders = {}
+        for t, path in zip(targets, ckpts):
+            tree = checkpoint.load_pytree(path)
+            tree = tree["params"] if "params" in tree else tree
+            try:
+                validate_decoder(tree, t)
+            except ValueError as e:
+                raise SystemExit(
+                    f"--checkpoints {path} is not a {t} decoder: {e}"
+                ) from e
+            decoders[t] = tree
+        params = {"encoder": enc["encoder"] if "encoder" in enc else enc,
+                  "decoders": decoders}
+        return checkpoint.params_from_numpy(params, device)
     if args.weights:
         params = checkpoint.load_pytree(args.weights)
         missing = [t for t in targets if t not in params.get("decoders", {})]

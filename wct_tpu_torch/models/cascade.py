@@ -18,7 +18,11 @@ conv). Each level's transform is the WCT (with any truncation mode and
 ``wct_groups``), AdaIN (``transform='adain'``), or at relu5_1 with
 ``swap5`` the style-swap; the fused relu1_1 tail folds the WCT's or
 AdaIN's per-image affine into its conv. Several styles blend through
-``interpolate_style_caches`` and ``stylize_interp``.
+``interpolate_style_caches`` and ``stylize_interp``. ``fold_transform``
+folds each image's affine into the first decoder conv at the levels of
+up to 128 channels (``:570-607``), and ``ring_conv`` runs every encoder
+and decoder conv outside the fused kernels without a reflect-padded
+copy (``ops/convs.py::conv2d_reflect_ring_nchw``).
 Every ``CascadeConfig`` field and check is kept, so the same illegal
 combinations raise the same ``ValueError``; options that are legal but
 not ported yet raise ``NotImplementedError`` naming the ROADMAP.md item
@@ -196,14 +200,8 @@ class CascadeConfig:
                 "exclusive scopes (each restricts pack2 to the OTHER "
                 "segment)"
             )
-        unported = (
-            (self.pack2_junction, "pack2_junction", wct_ops.ITEM_VARIANTS),
-            (self.fold_transform, "fold_transform", wct_ops.ITEM_VARIANTS),
-            (self.ring_conv, "ring_conv", wct_ops.ITEM_VARIANTS),
-        )
-        for on, what, item in unported:
-            if on:
-                raise wct_ops.not_ported(what, item)
+        if self.pack2_junction:
+            raise wct_ops.not_ported("pack2_junction", wct_ops.ITEM_VARIANTS)
 
     def ns_iters_for(self, level: str) -> int | None:
         """The content-side NS iteration override for one cascade level."""
@@ -267,7 +265,7 @@ def precompute_style(
     x = _as_images(style_img, encoder_params["conv1_1"]["w"].device)
     feats = vgg.encode_multi_nchw(
         encoder_params, to_nchw(x[None]).to(cfg.dtype), cfg.relu_targets,
-        compose_pre=cfg.compose_conv0,
+        compose_pre=cfg.compose_conv0, ring=cfg.ring_conv,
     )
     cache: StyleCache = {}
     for level in cfg.relu_targets:
@@ -410,22 +408,36 @@ def stylize_fn(
     # state right after pool1. (The reference's third kind, relu1_1
     # features out of a shallow junction, is never produced: see below.)
     state_kind = "img"
+    ring = cfg.ring_conv
     for _ in range(cfg.passes):
         for li, level in enumerate(cfg.relu_targets):
             if state_kind == "img":
                 if junction_ok and level != "relu1_1":
                     p1 = junction_ops.encoder_head_nchw(x, *head_weights)
-                    feats = vgg.encode_from_pool1_nchw(enc, p1, level)
+                    feats = vgg.encode_from_pool1_nchw(enc, p1, level, ring)
                 else:
                     feats = vgg.encode_multi_nchw(
-                        enc, x, (level,), compose_pre=cfg.compose_conv0
+                        enc, x, (level,), compose_pre=cfg.compose_conv0, ring=ring
                     )[level]
             else:
-                feats = vgg.encode_from_pool1_nchw(enc, x, level)
+                feats = vgg.encode_from_pool1_nchw(enc, x, level, ring)
             style = style_cache[level]
             dec_p = params["decoders"][level]
             layers = dec_lib.decoder_layers(level)
             nxt = cfg.relu_targets[li + 1] if li + 1 < len(cfg.relu_targets) else None
+            # As the reference, fold only at C ≤ 128 (relu2_1, relu1_1),
+            # where the O(9·C³) weight fold is small against the map it
+            # saves; the swap is not affine.
+            if (
+                cfg.fold_transform and vgg.TARGET_CHANNELS[level] <= 128
+                and not (cfg.swap5 and level == "relu5_1")
+            ):
+                m, bias = _level_affine(feats, level, style, alpha, cfg)
+                x = dec_lib.decode_folded_nchw(dec_p, feats, level, m, bias)
+                if cfg.clip_between_levels:
+                    x = x.clamp(0.0, 1.0)
+                state_kind = "img"
+                continue
             if junction_ok and len(layers) == 1 and not (cfg.swap5 and level == "relu5_1"):
                 # Single-conv decoder (relu1_1): fold each image's WCT or
                 # AdaIN affine into the conv; the apply and the 64→3
@@ -446,14 +458,14 @@ def stylize_fn(
                 junction_ok and nxt is not None and nxt != "relu1_1"
                 and dec_lib.has_standard_tail(level)
             ):
-                d = dec_lib.decode_partial_nchw(dec_p, transformed, level)
+                d = dec_lib.decode_partial_nchw(dec_p, transformed, level, ring)
                 x = junction_ops.junction_nchw(
                     d, *dec_lib.tail_weights(dec_p, level), *head_weights,
                     deep=True, clip=cfg.clip_between_levels,
                 )
                 state_kind = "pooled"
             else:
-                x = dec_lib.decode_nchw(dec_p, transformed, level)
+                x = dec_lib.decode_nchw(dec_p, transformed, level, ring)
                 if cfg.clip_between_levels:
                     x = x.clamp(0.0, 1.0)
                 state_kind = "img"

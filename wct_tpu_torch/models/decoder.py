@@ -16,6 +16,8 @@ import torch
 from wct_tpu_torch.models import vgg
 from wct_tpu_torch.ops.convs import (
     conv2d_reflect_nchw,
+    conv2d_reflect_perimage_nchw,
+    conv2d_reflect_ring_nchw,
     to_nchw,
     to_nhwc,
     upsample_nearest2_nchw,
@@ -51,20 +53,56 @@ def init_decoder_params(
     return params
 
 
-def decode_nchw(params: dict, f: torch.Tensor, target: str) -> torch.Tensor:
-    """``decode`` on NCHW features; returns NCHW RGB."""
-    layers = decoder_layers(target)
+def decode_nchw(params: dict, f: torch.Tensor, target: str, ring: bool = False) -> torch.Tensor:
+    """``decode`` on NCHW features; returns NCHW RGB. ``ring`` runs every
+    conv as ``conv2d_reflect_ring_nchw`` (no reflect-padded copy)."""
+    return _decode(params, f, decoder_layers(target), 0, ring)
+
+
+def _decode(params: dict, x: torch.Tensor, layers: tuple, start: int, ring: bool) -> torch.Tensor:
+    conv = conv2d_reflect_ring_nchw if ring else conv2d_reflect_nchw
     last = len(layers) - 1
-    x = f
-    for i, spec in enumerate(layers):
+    for i in range(start, len(layers)):
+        spec = layers[i]
         if spec[0] == "upsample":
             x = upsample_nearest2_nchw(x)
             continue
         p = params[spec[1]]
-        x = conv2d_reflect_nchw(x, p["w"], p["b"])
+        x = conv(x, p["w"], p["b"])
         if i != last:  # the final conv is linear (reference model.py:~135)
             x = torch.relu(x)
     return x
+
+
+def decode_folded_nchw(
+    params: dict, f: torch.Tensor, target: str, m: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """Decode with a per-image affine folded into the first conv
+    (``wct_tpu/models/decoder.py:82-110``).
+
+    ``decode_nchw(params, x ↦ x@M_b + β_b of f, target)`` without the
+    transformed map: ``m`` is ``[B, C, C]`` dense (WCT) or ``[B, C]``
+    diagonal (AdaIN), ``bias [B, C]``; ``fold_affine_into_conv`` makes
+    per-image weights in f32 and the first conv runs per image
+    (``conv2d_reflect_perimage_nchw``), then a ReLU unless it is the only
+    conv, then the rest of the decoder with the plain reflect conv, as
+    the reference's runs it.
+    """
+    layers = decoder_layers(target)
+    p = params[layers[0][1]]
+    w_fold, b_fold = fold_affine_into_conv(m, bias, p["w"], p["b"])
+    x = conv2d_reflect_perimage_nchw(f, w_fold, b_fold)
+    if len(layers) > 1:  # the final conv is linear
+        x = torch.relu(x)
+    return _decode(params, x, layers, 1, ring=False)
+
+
+def decode_folded(
+    params: dict, f: torch.Tensor, target: str, m: torch.Tensor, bias: torch.Tensor
+) -> torch.Tensor:
+    """``decode_folded_nchw`` on features ``[B, h, w, C]``; returns
+    ``[B, H, W, 3]``."""
+    return to_nhwc(decode_folded_nchw(params, to_nchw(f), target, m, bias))
 
 
 def fold_affine_into_conv(
@@ -102,25 +140,28 @@ def has_standard_tail(target: str) -> bool:
     )
 
 
-def decode_partial_nchw(params: dict, f: torch.Tensor, target: str) -> torch.Tensor:
+def decode_partial_nchw(
+    params: dict, f: torch.Tensor, target: str, ring: bool = False
+) -> torch.Tensor:
     """``decode_partial`` on NCHW features; returns NCHW ``[B, 64, h, w]``."""
     if not has_standard_tail(target):
         raise ValueError(f"the {target} decoder has no [upsample, conv, conv] tail")
+    conv = conv2d_reflect_ring_nchw if ring else conv2d_reflect_nchw
     x = f
     for spec in decoder_layers(target)[:-3]:
         if spec[0] == "upsample":
             x = upsample_nearest2_nchw(x)
             continue
         p = params[spec[1]]
-        x = torch.relu(conv2d_reflect_nchw(x, p["w"], p["b"]))
+        x = torch.relu(conv(x, p["w"], p["b"]))
     return x
 
 
-def decode_partial(params: dict, f: torch.Tensor, target: str) -> torch.Tensor:
+def decode_partial(params: dict, f: torch.Tensor, target: str, ring: bool = False) -> torch.Tensor:
     """Run the decoder up to (excluding) its final [upsample, conv, conv]
     tail; the fused junction kernel finishes the job. Every conv here
     gets a ReLU (none is the final linear conv)."""
-    return to_nhwc(decode_partial_nchw(params, to_nchw(f), target))
+    return to_nhwc(decode_partial_nchw(params, to_nchw(f), target, ring))
 
 
 def tail_weights(params: dict, target: str) -> tuple:
@@ -133,9 +174,9 @@ def tail_weights(params: dict, target: str) -> tuple:
     )
 
 
-def decode(params: dict, f: torch.Tensor, target: str) -> torch.Tensor:
+def decode(params: dict, f: torch.Tensor, target: str, ring: bool = False) -> torch.Tensor:
     """Decode features ``[B, h, w, C]`` at ``target`` to ``[B, H, W, 3]``.
 
     The output is raw (unclipped) RGB in ≈[0, 1]; callers clip.
     """
-    return to_nhwc(decode_nchw(params, to_nchw(f), target))
+    return to_nhwc(decode_nchw(params, to_nchw(f), target, ring))

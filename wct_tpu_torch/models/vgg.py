@@ -18,6 +18,7 @@ import torch
 from wct_tpu_torch.ops.convs import (
     compose_1x1_into_conv,
     conv2d_reflect_nchw,
+    conv2d_reflect_ring_nchw,
     maxpool2_nchw,
     to_nchw,
     to_nhwc,
@@ -105,7 +106,9 @@ def init_encoder_params(
     return params
 
 
-def _run(params: dict, x: torch.Tensor, layers, want: dict, composed=None) -> dict:
+def _run(params: dict, x: torch.Tensor, layers, want: dict, composed=None,
+         ring: bool = False) -> dict:
+    conv = conv2d_reflect_ring_nchw if ring else conv2d_reflect_nchw
     out: dict[str, torch.Tensor] = {}
     for i, spec in layers:
         kind = spec[0]
@@ -116,7 +119,7 @@ def _run(params: dict, x: torch.Tensor, layers, want: dict, composed=None) -> di
         if composed is not None and name == "conv0":
             continue  # folded into conv1_1
         p = composed if (composed is not None and name == "conv1_1") else params[name]
-        x = conv2d_reflect_nchw(x, p["w"], p["b"])
+        x = conv(x, p["w"], p["b"])
         if kind == "conv":  # conv0 (conv_pre) is linear
             x = torch.relu(x)
         if i in want:
@@ -126,12 +129,14 @@ def _run(params: dict, x: torch.Tensor, layers, want: dict, composed=None) -> di
 
 def encode_multi_nchw(
     params: dict, x: torch.Tensor, targets: tuple[str, ...],
-    compose_pre: bool = False,
+    compose_pre: bool = False, ring: bool = False,
 ) -> dict[str, torch.Tensor]:
     """One trunk pass over NCHW ``x``, returning every requested target.
 
     ``compose_pre`` folds the linear 1×1 conv0 into conv1_1
     (``convs.compose_1x1_into_conv``): the same math, one conv fewer.
+    ``ring`` runs every conv (the composed conv1_1 too) as
+    ``convs.conv2d_reflect_ring_nchw``, without a reflect-padded copy.
     """
     deepest = max(_TARGET_TO_IDX[t] for t in targets)
     want = {_TARGET_TO_IDX[t]: t for t in targets}
@@ -143,27 +148,28 @@ def encode_multi_nchw(
         )
         composed = {"w": wc, "b": bc}
     layers = list(enumerate(ENCODER_LAYERS[: deepest + 1]))
-    return _run(params, x, layers, want, composed)
+    return _run(params, x, layers, want, composed, ring)
 
 
 def encode_multi(
     params: dict, x: torch.Tensor, targets: tuple[str, ...],
-    compose_pre: bool = False,
+    compose_pre: bool = False, ring: bool = False,
 ) -> dict[str, torch.Tensor]:
     """Encode ``[B, H, W, 3]`` (RGB in [0,1]); features ``[B, h, w, C]`` per target."""
-    feats = encode_multi_nchw(params, to_nchw(x), targets, compose_pre)
+    feats = encode_multi_nchw(params, to_nchw(x), targets, compose_pre, ring)
     return {t: to_nhwc(f) for t, f in feats.items()}
 
 
 def encode(
-    params: dict, x: torch.Tensor, target: str, compose_pre: bool = False
+    params: dict, x: torch.Tensor, target: str, compose_pre: bool = False,
+    ring: bool = False,
 ) -> torch.Tensor:
     """Encode ``[B, H, W, 3]`` to ``target`` features ``[B, h, w, C]``."""
-    return encode_multi(params, x, (target,), compose_pre)[target]
+    return encode_multi(params, x, (target,), compose_pre, ring)[target]
 
 
 def encode_from_pool1_nchw(
-    params: dict, x: torch.Tensor, target: str
+    params: dict, x: torch.Tensor, target: str, ring: bool = False
 ) -> torch.Tensor:
     """``encode_from_pool1`` on the NCHW state ``x [B, 64, H/2, W/2]``."""
     idx = _TARGET_TO_IDX[target]
@@ -172,14 +178,14 @@ def encode_from_pool1_nchw(
     layers = [
         (i, ENCODER_LAYERS[i]) for i in range(_POOL1_IDX + 1, idx + 1)
     ]
-    return _run(params, x, layers, {idx: target})[target]
+    return _run(params, x, layers, {idx: target}, ring=ring)[target]
 
 
 def encode_from_pool1(
-    params: dict, x: torch.Tensor, target: str
+    params: dict, x: torch.Tensor, target: str, ring: bool = False
 ) -> torch.Tensor:
     """Resume encoding from the post-pool1 state ``x [B, H/2, W/2, 64]``.
 
     ``target`` must be relu2_1 or deeper.
     """
-    return to_nhwc(encode_from_pool1_nchw(params, to_nchw(x), target))
+    return to_nhwc(encode_from_pool1_nchw(params, to_nchw(x), target, ring))

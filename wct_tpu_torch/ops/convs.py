@@ -287,14 +287,85 @@ def conv2d_valid_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
     ``parallel.mesh`` pads a height shard with its neighbours' rows and
     calls this."""
     w, b = w.to(x.dtype), b.to(x.dtype)
+    if x.device.type == "cuda" and torch.is_grad_enabled() and (
+            x.requires_grad or w.requires_grad or b.requires_grad):
+        return _conv_train(x, w, b)
+    return _stock_conv(x, w, b)
+
+
+def _stock_conv(x, w, b=None, padding: int = 0, groups: int = 1):
+    """``F.conv2d(x, w, b, padding=padding, groups=groups)`` on the port's
+    routes, ``w`` and ``b`` already in ``x``'s dtype (``b`` may be None).
+
+    On the CPU a bf16 conv is an f32 conv, one rounding, then the bf16
+    bias. On the card the conv runs under ``conv_by_shape``. Its key is
+    ``(x, w, dtype, device)`` for a VALID ungrouped conv, the key every
+    earlier route has; a zero-padded or grouped conv adds ``padding=p``
+    and ``groups=g`` before the device, so it never shares a choice with
+    a VALID conv of the same tensor shapes.
+    """
     if x.device.type != "cuda":
         if x.dtype == torch.bfloat16:
-            return F.conv2d(x.float(), w.float()).to(x.dtype) + b[:, None, None]
-        return F.conv2d(x, w, b)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad or b.requires_grad):
-        return _conv_train(x, w, b)
-    key = (tuple(x.shape), tuple(w.shape), x.dtype, x.device)
-    return conv_by_shape(key, lambda: F.conv2d(x, w, b))
+            y = F.conv2d(x.float(), w.float(), padding=padding, groups=groups).to(x.dtype)
+            return y if b is None else y + b[:, None, None]
+        return F.conv2d(x, w, b, padding=padding, groups=groups)
+    extra = ((f"padding={padding}",) if padding else ()) + ((f"groups={groups}",) if groups != 1 else ())
+    key = (tuple(x.shape), tuple(w.shape), x.dtype, *extra, x.device)
+    return conv_by_shape(key, lambda: F.conv2d(x, w, b, padding=padding, groups=groups))
+
+
+def conv2d_reflect_ring_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Reflect conv without the reflect-padded copy
+    (``wct_tpu/ops/convs.py:66-132``).
+
+    The bulk runs as a zero-padded SAME conv, so the ``[B, C, H+2p,
+    W+2p]`` copy never exists. The p-pixel border is then recomputed
+    from four thin reflect-padded strips, top and bottom of height 2p and
+    left and right of full height (the side strips own the corners), and
+    spliced in; the bias is added last. A 1×1 kernel has no border, and a
+    map with H or W below 2p has no room for the strips: both take
+    ``conv2d_reflect_nchw``, as the reference does.
+    """
+    k = w.shape[2]
+    if k != w.shape[3]:
+        raise ValueError(f"square kernels only, got {k}×{w.shape[3]}")
+    p = (k - 1) // 2
+    h, wd = x.shape[2], x.shape[3]
+    if p == 0 or h < 2 * p or wd < 2 * p:
+        return conv2d_reflect_nchw(x, w, b)
+    w, b = w.to(x.dtype), b.to(x.dtype)
+    out = _stock_conv(x, w, padding=p)
+    # Output rows [0, p) read input rows [-p, 2p): the first 2p rows,
+    # reflected upwards by p, reflect-padded sideways, VALID.
+    top = F.pad(F.pad(x[:, :, : 2 * p], (0, 0, p, 0), mode="reflect"), (p, p, 0, 0), mode="reflect")
+    bot = F.pad(F.pad(x[:, :, -2 * p :], (0, 0, 0, p), mode="reflect"), (p, p, 0, 0), mode="reflect")
+    left = F.pad(F.pad(x[..., : 2 * p], (p, 0, 0, 0), mode="reflect"), (0, 0, p, p), mode="reflect")
+    right = F.pad(F.pad(x[..., -2 * p :], (0, p, 0, 0), mode="reflect"), (0, 0, p, p), mode="reflect")
+    out[:, :, :p] = _stock_conv(top, w)
+    out[:, :, h - p :] = _stock_conv(bot, w)
+    out[..., :p] = _stock_conv(left, w)
+    out[..., wd - p :] = _stock_conv(right, w)
+    return out + b[:, None, None]
+
+
+def conv2d_reflect_perimage_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Reflect conv where every image has its own weights
+    (``wct_tpu/ops/convs.py:135-171``): ``x [B, Ci, H, W]``,
+    ``w [B, Co, Ci, k, k]``, ``b [B, Co]`` → ``[B, Co, H, W]``.
+
+    One grouped conv (``groups=B``) over the reflect-padded map seen as
+    ``[1, B·Ci, ·, ·]``: output group g, channels ``[g·Co, (g+1)·Co)``,
+    is image g's. Weights and bias are cast to ``x``'s dtype (the
+    transform fold makes them in f32), the bias added after the conv.
+    """
+    nb, ci = x.shape[:2]
+    co, k = w.shape[1], w.shape[3]
+    if k != w.shape[4]:
+        raise ValueError(f"square kernels only, got {k}×{w.shape[4]}")
+    xp = pad_reflect_nchw(x, (k - 1) // 2)
+    w, b = w.to(x.dtype), b.to(x.dtype)
+    y = _stock_conv(xp.reshape(1, nb * ci, *xp.shape[2:]), w.reshape(nb * co, ci, k, k), groups=nb)
+    return y.reshape(nb, co, *y.shape[2:]) + b[:, :, None, None]
 
 
 def maxpool2_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -316,6 +387,17 @@ def conv2d_reflect(
 ) -> torch.Tensor:
     """``conv2d_reflect_nchw`` on ``[B, H, W, C]``."""
     return to_nhwc(conv2d_reflect_nchw(to_nchw(x), w, b))
+
+
+def conv2d_reflect_ring(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``conv2d_reflect_ring_nchw`` on ``[B, H, W, C]``."""
+    return to_nhwc(conv2d_reflect_ring_nchw(to_nchw(x), w, b))
+
+
+def conv2d_reflect_perimage(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``conv2d_reflect_perimage_nchw`` on ``[B, H, W, Ci]``; the weights
+    stay the port's per-image OIHW ``[B, Co, Ci, k, k]``."""
+    return to_nhwc(conv2d_reflect_perimage_nchw(to_nchw(x), w, b))
 
 
 def maxpool2(x: torch.Tensor) -> torch.Tensor:

@@ -55,6 +55,7 @@ _AUTO_EIGH_MAX_C = 64
 
 # Where each part that is not ported yet is carried in ROADMAP.md.
 ITEM_VARIANTS = "ROADMAP.md queue 1 item 11 (opt-in variants)"
+ITEM_SPATIAL = "ROADMAP.md queue 1 item 11g (fold and ring in stylize_spatial)"
 ITEM_ORBAX = "ROADMAP.md queue 1 item 12 (orbax checkpoints)"
 
 

@@ -549,7 +549,13 @@ def stylize_spatial(
     than the unsharded path. Outputs are valid stylizations and
     deterministic for a fixed mesh, but not bitwise equal to the
     unsharded result; use ``stylize_sharded`` where bits must match.
+
+    The halo convs are this function's own, so ``fold_transform`` and
+    ``ring_conv`` are not carried here: either raises.
     """
+    for on, what in ((cfg.fold_transform, "fold_transform"), (cfg.ring_conv, "ring_conv")):
+        if on:
+            raise wct_ops.not_ported(f"{what} in stylize_spatial", wct_ops.ITEM_SPATIAL)
     check_axis(mesh, axis_name)
     cfg = _unfused(cfg)
     set_numerics(cfg.dtype)

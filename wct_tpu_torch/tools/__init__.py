@@ -1,1 +1,2 @@
-"""Measurement tools that run on the card."""
+"""Measurement tools that run on the card, and ``make_bundle``, which
+assembles a weight bundle on the host."""
