@@ -31,7 +31,15 @@ Newton–Schulz-kernel route and the bf16 throughput route:
 ms per frame in turns, the relu2_1 and relu1_1 decode stages, the
 folded relu1_1 conv as one grouped conv beside ``decoder_tail_cuda``)
 and ``ring_conv`` (``main_ring``: the same, peak bytes, and per conv
-the share of interior elements equal to the padded conv's). It checks
+the share of interior elements equal to the padded conv's), and
+``pack2_junction`` (``main_pack2``: both routes with pack2, and the f32
+route with ``pack2_tail_only`` and with ``pack2_junction_only``; the
+same gates and turns, the calls into ``ops/pack2.py``, the Gram launches
+of one call, and a batch of 3 bitwise equal to pack2 off). Then the int8
+conv at conv1_2 and conv3_1 on the cascade's maps and on half-normal
+ones (``int8``: int32 sums bitwise equal to float64, the reference's
+bound against the f32 conv on the half-normal maps, ms beside the f32
+and bf16 convs). It checks
 the outputs of each and one against another, and runs the CLI nine
 times (``--fold``, ``--preset throughput --ring-conv``, and
 ``--checkpoints``/``--vgg-path`` against ``--weights`` on the bundle
@@ -49,14 +57,20 @@ the card (``train``: first-step gradients against float64, bf16 against
 f32, remat and save-resume bitwise, ms per step, each conv shape's
 forward and backward times and choice), the layerwise statistics and
 solves (``train_layerwise``) and the training CLI with a resume, a
-SIGTERM and the stylize CLI on its decoder (``train_cli``). Then the
+SIGTERM and the stylize CLI on its decoder (``train_cli``); ``train``
+also saves five steps through the step-directory backend
+(``TrainCheckpointer(fmt="orbax")``, ``keep=3``) and resumes from it as
+from the npz one. Then the
 mesh module on four shards of the card (and on every card where there
 are more): data-parallel stylization of 8 images at 1024 px, f32 with
 the Newton–Schulz kernel and bf16, each shard bitwise equal to
-``stylize`` of its images, launches per shard (``mesh_dp``); one
-2048×2048 image split by height, the halo encoder, the combined
-covariances against float64 and each level against the unsharded
-cascade (``mesh_spatial``); the same image unsharded with and without
+``stylize`` of its images, launches per shard, and with pack2 on a
+batch that divides the mesh (each shard packs its own pairs) and on one
+that does not (pack2 off, bitwise) (``mesh_dp``); one 2048×2048 image
+split by height, the halo encoder, the combined covariances against
+float64, each level against the unsharded cascade, and
+``fold_transform``, ``ring_conv`` and pack2 on the one image each against
+the call without (``mesh_spatial``); the same image unsharded with and without
 ``ring_conv`` (``ring_2048``: ms in turns, peak bytes per level); the
 data-parallel train step against
 ``train_step`` (``mesh_train``); and ``--data-parallel`` through both
@@ -93,7 +107,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_leaves
 
 from wct_tpu_torch.models import cascade, decoder, vgg
-from wct_tpu_torch.ops import _build, conv_small, convs, gram, junction, reductions, sqrtm
+from wct_tpu_torch.ops import _build, conv_small, convs, gram, junction, pack2, reductions, sqrtm
 from wct_tpu_torch.ops import adain as adain_ops
 from wct_tpu_torch.ops import style_swap as swap_ops
 from wct_tpu_torch.ops import wct as wct_ops
@@ -1789,23 +1803,31 @@ def fold_decode_ms(params, batch, cache, cfg, cfg_fold, runs=3) -> dict:
     return out
 
 
-def phase_rewrite(params, content, style, routes, field, extra):
-    """One layout rewrite, ``field`` (``fold_transform`` or ``ring_conv``),
-    on the f32 Newton–Schulz-kernel route and the bf16 throughput route:
-    each through ``drive`` with its route's launch counts and gates
-    (``rewrite_gates``), its distance from the route's own output, ms per
-    frame off and on in turns (off, on, on, off), and whatever
-    ``extra(cfg, cfg_on, cache, batch, off, on)`` measures."""
+def on_both_routes(**fields) -> dict:
+    """A rewrite's variants for ``phase_rewrite``: the f32
+    Newton–Schulz-kernel route and the bf16 throughput route, each with
+    ``fields`` set."""
+    return {route: (route, fields) for route in ("f32_ns_pallas", "bf16_throughput")}
+
+
+def phase_rewrite(params, content, style, routes, phase, variants, extra):
+    """One layout rewrite on the routes ``variants`` names (variant →
+    (route, the config fields it sets)): each through ``drive`` with its
+    route's launch counts and gates (``rewrite_gates``), its distance from
+    the route's own output, ms per frame off and on in turns (off, on, on,
+    off), and whatever ``extra(cfg, cfg_on, cache, batch, off, on)``
+    measures."""
     n_chunks = -(-N_CONTENT // MICROBATCH)
     cfg_f32, cache_f32, out_f32 = routes["f32_ns_pallas"]
     rows = {}
     batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
-    for route, (cfg, _, out_route) in routes.items():
-        cfg_on = dataclasses.replace(cfg, **{field: True})
+    for variant, (route, fields) in variants.items():
+        cfg, _, out_route = routes[route]
+        cfg_on = dataclasses.replace(cfg, **fields)
         cache, out, counts, wall = drive(params, content, style, cfg_on)
         base = {**NO_LAUNCHES, "centered_gram": 5 * (1 + n_chunks),
                 "ns_sqrtm": 5 * (1 + n_chunks) if cfg.method == "newton_schulz_pallas" else 0}
-        row = rewrite_gates(params, content, f"{field} {route}", cfg_on, cache, out, counts, base,
+        row = rewrite_gates(params, content, f"{phase} {variant}", cfg_on, cache, out, counts, base,
                             out_f32, cache_f32, cfg_f32)
         d = (out - out_route).abs().flatten()
         row.update(launches=counts, first_run_wall_s=wall, batch1_vs_batch6_bitwise_equal=True,
@@ -1816,9 +1838,9 @@ def phase_rewrite(params, content, style, routes, field, extra):
         t = [cuda_ms(fn, 3) / MICROBATCH for fn in (off, on, on, off)]
         row.update(ms_per_frame_b4=(t[1] + t[2]) / 2, ms_per_frame_b4_off=(t[0] + t[3]) / 2,
                    ms_per_frame_b4_turns_off_on_on_off=t, **extra(cfg, cfg_on, cache, batch, off, on))
-        rows[route] = row
-    emit({"phase": "main_" + field.split("_")[0], "card": card_name(), "size": SIZE,
-          "n_images": N_CONTENT, "microbatch": MICROBATCH, "alpha": ALPHA, "routes": rows})
+        rows[variant] = row
+    emit({"phase": phase, "card": card_name(), "size": SIZE, "n_images": N_CONTENT,
+          "microbatch": MICROBATCH, "alpha": ALPHA, "routes": rows})
 
 
 def fold_extra(params):
@@ -1842,6 +1864,130 @@ def ring_extra(params):
         return {"peak_bytes_b4_off": peak_bytes(off), "peak_bytes_b4": peak_bytes(on),
                 "interior_bitwise_share_per_conv": ring_interior_shares(params, batch, cfg.dtype)}
     return extra
+
+
+PACK2_VARIANTS = {
+    "f32_ns_pallas": ("f32_ns_pallas", dict(pack2_junction=True)),
+    "bf16_throughput": ("bf16_throughput", dict(pack2_junction=True)),
+    "f32_tail_only": ("f32_ns_pallas", dict(pack2_junction=True, pack2_tail_only=True)),
+    "f32_junction_only": ("f32_ns_pallas", dict(pack2_junction=True, pack2_junction_only=True)),
+}
+PACK2_FUNCTIONS = ("head_pack2", "head_pack2_shallow", "junction_pack2", "tail_pack2")
+
+
+@contextlib.contextmanager
+def pack2_calls():
+    """Counts the calls the cascade makes into ``ops/pack2.py`` in the block:
+    yields the dict it fills, one entry per function."""
+    calls = dict.fromkeys(PACK2_FUNCTIONS, 0)
+    plain = {name: getattr(pack2, name) for name in PACK2_FUNCTIONS}
+
+    def counted(name):
+        def fn(*args, **kw):
+            calls[name] += 1
+            return plain[name](*args, **kw)
+        return fn
+
+    for name in PACK2_FUNCTIONS:
+        setattr(pack2, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, fn in plain.items():
+            setattr(pack2, name, fn)
+
+
+def pack2_extra(params):
+    """main_pack2's own rows: the calls one batch-4 ``stylize`` makes into
+    ``ops/pack2.py`` (which parts the variant packs), the Gram kernel's
+    launches in that call, and a batch of 3 (odd: the reference's gate
+    leaves pack2 off) bitwise equal to the route without pack2."""
+    def extra(cfg, cfg_on, cache, batch, off, on):
+        reset_counts()
+        with pack2_calls() as calls:
+            on()
+        torch.cuda.synchronize()
+        grams = read_counts()["centered_gram"]
+        check(grams == len(cfg.relu_targets), f"main_pack2: {grams} Gram launches in one call")
+        check(calls["tail_pack2"] + calls["junction_pack2"] > 0, f"main_pack2: nothing packed {calls}")
+        odd = batch[:3]
+        check(torch.equal(cascade.stylize(params, odd, cache, ALPHA, cfg_on),
+                          cascade.stylize(params, odd, cache, ALPHA, cfg)),
+              "main_pack2: a batch of 3 differs from the route without pack2")
+        return {"pack2_calls_b4": dict(calls), "centered_gram_launches_b4": grams,
+                "odd_batch3_bitwise_equal_off": True}
+    return extra
+
+
+# The reference's bound of the int8 conv against the f32 conv
+# (tests/test_convs.py:170-190): relative max < 0.02, on half-normal maps.
+INT8_REL_LIMIT = 0.02
+
+
+def int8_row(x, w, b) -> dict:
+    """The int8 conv of ``x`` with OIHW ``w``, ``b``: its int32 sums against
+    a float64 conv of the same quantized tensors on the card (must be
+    bitwise equal), its output's relative max distance from the f32 conv,
+    and the largest sum."""
+    wq, ws = convs.quantize_weight_int8(w)
+    xq, _ = convs.quantize_act_int8(convs.pad_reflect_nchw(x, 1))
+    sums = convs.conv2d_int8_sums_nchw(xq, wq)
+    exact = torch.equal(sums.double(), F.conv2d(xq.double(), wq.double()))
+    y32 = conv2d_reflect_nchw(x, w, b)
+    rel = float((convs.conv2d_reflect_int8_nchw(x, wq, ws, b) - y32).abs().max() / y32.abs().max())
+    return {"sums_bitwise_equal_float64": exact, "vs_f32_rel_max": rel,
+            "max_abs_sum": int(sums.abs().max())}
+
+
+def phase_int8(params, content):
+    """The int8 conv (``ops/convs.py``, ``wct_tpu/ops/convs.py:201-257``) at
+    the cascade's shapes, batch 4 at 512 px, with the trained conv1_2 (on
+    the relu1_1 map) and conv3_1 (on its input, the pooled relu2_2 map of
+    the relu3_1 tier). On the cascade's own maps and on half-normal maps
+    of the same shapes (the reference's test input,
+    ``tests/test_convs.py:170-190``): the integer sums (``torch._int_mm`` on
+    patches) bitwise equal to a float64 conv of the same quantized tensors
+    on the card. The reference's bound against the f32 conv gates the
+    half-normal maps; on the cascade's maps, whose per-tensor scale a few
+    outliers set, the distance is printed. ms of the int8 conv, its sums
+    alone, and the f32 and bf16 convs on the cascade's maps."""
+    enc = params["encoder"]
+    inputs, h = {}, to_nchw(torch.as_tensor(content[:MICROBATCH], device=DEV))
+    gen = torch.Generator(device=DEV).manual_seed(SEED + 50)
+    with torch.no_grad():
+        for spec in vgg.ENCODER_LAYERS:
+            if spec[0] == "pool":
+                h = convs.maxpool2_nchw(h)
+                continue
+            if spec[1] in ("conv1_2", "conv3_1"):
+                inputs[spec[1]] = h
+            if spec[1] == "conv3_1":
+                break
+            p = enc[spec[1]]
+            h = conv2d_reflect_nchw(h, p["w"], p["b"])
+            h = torch.relu(h) if spec[0] == "conv" else h
+        rows = {}
+        for name, x in inputs.items():
+            w, b = enc[name]["w"], enc[name]["b"]
+            row = {"cascade_map": int8_row(x, w, b),
+                   "half_normal_map": int8_row(
+                       torch.randn(x.shape, generator=gen, device=DEV).abs(), w, b)}
+            for kind, r in row.items():
+                check(r["sums_bitwise_equal_float64"], f"int8 {name} {kind}: sums differ from float64")
+            check(row["half_normal_map"]["vs_f32_rel_max"] < INT8_REL_LIMIT,
+                  f"int8 {name}: {row['half_normal_map']} against the f32 conv")
+            wq, ws = convs.quantize_weight_int8(w)
+            xq, _ = convs.quantize_act_int8(convs.pad_reflect_nchw(x, 1))
+            xb = x.bfloat16()
+            row.update(
+                cascade_map_max=float(x.max()), cascade_map_q99=float(torch.quantile(x.flatten()[::97], 0.99)),
+                int8_ms=cuda_ms(lambda: convs.conv2d_reflect_int8_nchw(x, wq, ws, b), 3),
+                int8_sums_ms=cuda_ms(lambda: convs.conv2d_int8_sums_nchw(xq, wq), 3),
+                f32_ms=cuda_ms(lambda: conv2d_reflect_nchw(x, w, b), 3),
+                bf16_ms=cuda_ms(lambda: conv2d_reflect_nchw(xb, w, b), 3))
+            rows[f"{name} {list(x.shape)}->{w.shape[0]}"] = row
+            del xq, xb
+    emit({"phase": "int8", "card": card_name(), "size": SIZE, "batch": MICROBATCH, "convs": rows})
 
 
 def ring_interior_shares(params, batch, dtype) -> dict:
@@ -2597,6 +2743,7 @@ def phase_train(params, name):
     check(resume_bits, "train: save, resume and one step differ from the uninterrupted step")
     losses = torch.stack(losses).tolist()
     check(all(np.isfinite(losses)), f"train: non-finite loss {losses}")
+    steps_row = train_step_directories(enc, ckptr, cfg, pool_np)
 
     # One step at a time: the host's return against the card's time.
     host_ms, card_ms = [], []
@@ -2651,7 +2798,7 @@ def phase_train(params, name):
           "he_init_bf16_grad_vs_float64": he_bf16_rel, "he_init_bf16_loss_rel": he_bf16_loss_rel,
           "repeat_same_bits": repeat_bits, "remat_same_bits": remat_bits,
           "bf16_grad_rel": bf16_rel, "bf16_loss_rel": bf16_loss_rel, "loss_bf16": loss16,
-          "losses": losses, "resume_same_bits": resume_bits,
+          "losses": losses, "resume_same_bits": resume_bits, "step_directories": steps_row,
           "ms_per_step": step_ms, "img_per_sec": cfg.batch_size * 1e3 / step_ms,
           "loop_host_enqueue_s": enqueue_s, "loop_s": loop_s,
           "max_memory_allocated_bytes": peak,
@@ -2659,6 +2806,36 @@ def phase_train(params, name):
           "kernel_launches": kernel_launches,
           "he_init_relu1_1_losses": he_losses, "conv_shapes": choices,
           "chosen_direction_slowdown_max": slowest})
+
+
+def train_step_directories(enc, ckptr, cfg, pool_np) -> dict:
+    """The step-directory backend (``TrainCheckpointer(fmt="orbax")``): from
+    the npz state ``ckptr`` holds, five steps saved with ``keep=3``; three
+    directories remain, the highest restores bitwise, and one step from
+    it is the step from the npz backend's restore of the same state."""
+    work = ROOT / "build" / "chip_smoke" / "train_steps"
+    shutil.rmtree(work, ignore_errors=True)
+    steps = checkpoint.TrainCheckpointer(work, fmt="orbax", keep=3)
+    npz = checkpoint.TrainCheckpointer(work / "npz")
+    state = trainer.restore_train_state(ckptr.restore_latest(), cfg, DEV)
+    batches = tdata.device_pool_batches(pool_np, cfg.batch_size, seed=SEED + 40, device=DEV)
+    t0 = time.perf_counter()
+    for _ in range(5):
+        state, _ = trainer.train_step(state, enc, next(batches), cfg)
+        steps.save(state.step, trainer.state_tree(state))
+    save_s = time.perf_counter() - t0
+    kept = steps.steps()
+    check(kept == [state.step - 2, state.step - 1, state.step], f"train: step directories {kept}")
+    restored = trainer.restore_train_state(steps.restore_latest(), cfg, DEV)
+    check(same_state(restored, state), "train: the highest step directory does not restore bitwise")
+    npz.save(state.step, trainer.state_tree(state))
+    from_npz = trainer.restore_train_state(npz.restore_latest(), cfg, DEV)
+    b = next(batches)
+    restored, _ = trainer.train_step(restored, enc, b, cfg)
+    from_npz, _ = trainer.train_step(from_npz, enc, b, cfg)
+    check(same_state(restored, from_npz), "train: resume from a step directory differs from npz")
+    return {"kept_steps": kept, "restore_bitwise": True, "resume_equals_npz_resume": True,
+            "five_steps_and_saves_s": save_s}
 
 
 def phase_train_layerwise(params):
@@ -2912,8 +3089,45 @@ def phase_mesh_dp(params, style):
                         "shard_enqueue_vs_device_ms": shard_times(mesh)})
             rows[f"{mesh_name}/{route}"] = row
             del out, cache
+        rows[f"{mesh_name}/f32_ns_pallas_pack2"] = mesh_dp_pack2(params, style, x, mesh)
     emit({"phase": "mesh_dp", "card": card_name(), "batch": MESH_DP_BATCH, "size": MESH_DP_SIZE,
           "alpha": ALPHA, "shards": MESH_SHARDS, "runs": rows})
+
+
+def mesh_dp_pack2(params, style, x, mesh) -> dict:
+    """``stylize_sharded`` with pack2 on the f32 Newton–Schulz-kernel route.
+    A batch that divides the mesh: every shard packs its own pairs and is
+    bitwise ``stylize`` of its images with pack2; ms per frame against
+    pack2 off in turns. A batch that does not (2n − 1 on n shards): pack2
+    off on every shard, bitwise the call without it."""
+    n = len(mesh.devices)
+    cfg = cascade.CascadeConfig(method="newton_schulz_pallas", pack2_junction=True)
+    off = dataclasses.replace(cfg, pack2_junction=False)
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    row = {}
+    if len(x) % n == 0:
+        with pack2_calls() as calls:
+            out = mesh_lib.stylize_sharded(params, x, cache, ALPHA, cfg, mesh)
+        per = len(x) // n
+        check(calls["tail_pack2"] == (n if per % 2 == 0 else 0), f"mesh_dp pack2: calls {calls}")
+        for i, dev in enumerate(mesh.devices):
+            ref = cascade.stylize(mesh_lib.replicate(mesh, params, dev), x[i * per:(i + 1) * per].to(dev),
+                                  mesh_lib.replicate(mesh, cache, dev), ALPHA, cfg)
+            check(torch.equal(out[i * per:(i + 1) * per], ref.to(out.device)),
+                  f"mesh_dp pack2: shard {i} differs from stylize of its images")
+        ms_off, ms_on = in_turns(lambda: mesh_lib.stylize_sharded(params, x, cache, ALPHA, off, mesh),
+                                 lambda: mesh_lib.stylize_sharded(params, x, cache, ALPHA, cfg, mesh))
+        row.update(dividing_batch=len(x), pack2_calls=dict(calls), shards_equal_stylize_bitwise=True,
+                   ms_per_frame_sharded_pack2=ms_on / len(x), ms_per_frame_sharded_off=ms_off / len(x))
+        del out, ref
+    odd = x[: 2 * n - 1]
+    with pack2_calls() as calls:
+        on = mesh_lib.stylize_sharded(params, odd, cache, ALPHA, cfg, mesh)
+    check(not any(calls.values()) and torch.equal(
+        on, mesh_lib.stylize_sharded(params, odd, cache, ALPHA, off, mesh)),
+        f"mesh_dp pack2: a batch of {len(odd)} on {n} shards is not the call without pack2")
+    row.update(non_dividing_batch=len(odd), non_dividing_bitwise_equal_off=True)
+    return row
 
 
 def phase_mesh_spatial(params, style):
@@ -2991,8 +3205,40 @@ def phase_mesh_spatial(params, style):
             del out, cache
         rows[f"{mesh_name}/encoder_relu5_1"] = enc_row
         rows[f"{mesh_name}/covariance_vs_float64_rel_fro"] = covs
+        rows[f"{mesh_name}/wct_f32_ns_pallas_rewrites"] = mesh_spatial_rewrites(params, style, img, mesh)
     emit({"phase": "mesh_spatial", "card": card_name(), "size": MESH_SPATIAL_SIZE,
           "alpha": ALPHA, "shards": MESH_SHARDS, "runs": rows})
+
+
+def mesh_spatial_rewrites(params, style, img, mesh) -> dict:
+    """``stylize_spatial`` of the phase's image on the f32
+    Newton–Schulz-kernel route with ``fold_transform`` and with
+    ``ring_conv``, each against the same call without the flag (q99 ≤
+    REWRITE_Q99_LIMIT, ms in turns), and with pack2 on the one image
+    (odd: the reference's gate leaves it off), bitwise the call without."""
+    cfg = cascade.CascadeConfig(method="newton_schulz_pallas")
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    base = mesh_lib.stylize_spatial(params, img, cache, ALPHA, cfg, mesh)
+    row = {}
+    for field in ("fold_transform", "ring_conv"):
+        on_cfg = dataclasses.replace(cfg, **{field: True})
+        reset_counts()
+        on = mesh_lib.stylize_spatial(params, img, cache, ALPHA, on_cfg, mesh)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        g = gap(on, base)
+        check(bool(torch.isfinite(on).all()) and g["q99"] <= REWRITE_Q99_LIMIT,
+              f"mesh_spatial {field}: against the call without it {g}")
+        ms_off, ms_on = in_turns(lambda: mesh_lib.stylize_spatial(params, img, cache, ALPHA, cfg, mesh),
+                                 lambda: mesh_lib.stylize_spatial(params, img, cache, ALPHA, on_cfg, mesh),
+                                 runs=1)
+        row[field] = {"vs_off": g, "launches": counts, "ms": ms_on, "ms_off": ms_off}
+        del on
+    packed = mesh_lib.stylize_spatial(params, img, cache, ALPHA,
+                                      dataclasses.replace(cfg, pack2_junction=True), mesh)
+    check(torch.equal(packed, base), "mesh_spatial: pack2 on one image is not the call without it")
+    row["pack2_one_image_bitwise_equal_off"] = True
+    return row
 
 
 def phase_ring_2048(params, style):
@@ -3229,9 +3475,13 @@ def main() -> int:
     phase_main_trunc(params, content, style)
     routes = {"f32_ns_pallas": (cfg, cache, out_unfused),
               "bf16_throughput": (cfg_bf16, cache_bf16, out_bf16)}
-    phase_rewrite(params, content, style, routes, "fold_transform", fold_extra(params))
-    phase_rewrite(params, content, style, routes, "ring_conv", ring_extra(params))
+    phase_rewrite(params, content, style, routes, "main_fold", on_both_routes(fold_transform=True),
+                  fold_extra(params))
+    phase_rewrite(params, content, style, routes, "main_ring", on_both_routes(ring_conv=True),
+                  ring_extra(params))
+    phase_rewrite(params, content, style, routes, "main_pack2", PACK2_VARIANTS, pack2_extra(params))
     del routes
+    phase_int8(params, content)
     phase_cli()
     phase_stream_kernels(params, style, name)
     phase_stream(params, name)

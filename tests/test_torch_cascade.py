@@ -182,35 +182,46 @@ def test_config_same_value_errors_as_reference(kw):
     ids=lambda kw: "-".join(f"{k}={v}" for k, v in kw.items()),
 )
 def test_config_unported_options_raise_not_implemented(setup, kw):
-    """Options the port does not carry raise, naming their ROADMAP.md
-    item: pack2 and its scopes. Those it carries build: bf16 with
-    ``fuse_junction`` (held against the reference in
-    tests/test_torch_junction_bf16.py), and ``fold_transform``,
-    ``ring_conv``, AdaIN, swap5, grouped WCT and the soft and relative
-    truncation modes, each held here to the reference on one level at
-    α=0.6, relu5_1 for the swap and relu1_1 for the others (measured q99
-    ≤ 8.1e-7, max ≤ 1.6e-6; every level in
-    tests/test_torch_cascade_variants.py, test_torch_wct_modes.py and
-    test_torch_fold_ring.py)."""
+    """Every option of the reference's config is carried; none raises.
+    bf16 with ``fuse_junction`` builds (held against the reference in
+    tests/test_torch_junction_bf16.py). ``fold_transform``, ``ring_conv``,
+    AdaIN, swap5, grouped WCT, the soft and relative truncation modes and
+    pack2 with its scopes are each held here to the reference on one
+    level at α=0.6, relu5_1 for the swap and relu1_1 for the others, and
+    for pack2 on a batch of two, the content and its mirror image, so that
+    both packages take the packed relu1_1 tail (measured q99 ≤ 8.1e-7,
+    max ≤ 1.6e-6 in f32; every level in
+    tests/test_torch_cascade_variants.py, test_torch_wct_modes.py,
+    test_torch_fold_ring.py and test_torch_pack2.py). The bf16 pack2
+    case takes tests/test_torch_throughput.py's bf16 bars (q99 ≤ 2e-2,
+    median ≤ 4e-3)."""
     jcfg = jcascade.CascadeConfig(**kw)  # legal in the reference
     if kw == dict(compute_dtype="bfloat16", fuse_junction=True):
         cfg = tcascade.CascadeConfig(**kw)
         assert cfg.fuse_junction and cfg.compute_dtype == "bfloat16"
         return
-    if "pack2_junction" not in kw:
-        jparams, tparams, content, style = setup
-        one = dict(kw, relu_targets=("relu5_1",) if kw.get("swap5") else ("relu1_1",))
+    jparams, tparams, content, style = setup
+    one = dict(kw, relu_targets=("relu5_1",) if kw.get("swap5") else ("relu1_1",))
+    jone, tone = jcascade.CascadeConfig(**one), tcascade.CascadeConfig(**one)
+    if "pack2_junction" in kw:
+        batch = np.stack([content, content[:, ::-1]])
+        jcache = jcascade.precompute_style(jparams["encoder"], jnp.asarray(style), jone)
+        ref = np.asarray(jcascade.stylize(jparams, jnp.asarray(batch), jcache, 0.6, jone)
+                         .astype(jnp.float32))
+        tcache = tcascade.precompute_style(tparams["encoder"], style, tone)
+        got = tcascade.stylize(tparams, batch, tcache, 0.6, tone)
+    else:
         ref = np.asarray(jcascade.stylize_pair(
-            jparams, jnp.asarray(content), jnp.asarray(style), 0.6,
-            jcascade.CascadeConfig(**one)))
-        got = tcascade.stylize_pair(tparams, content, style, 0.6, tcascade.CascadeConfig(**one))
-        d = np.abs(got.numpy().astype(np.float64) - ref)
+            jparams, jnp.asarray(content), jnp.asarray(style), 0.6, jone))
+        got = tcascade.stylize_pair(tparams, content, style, 0.6, tone)
+    d = np.abs(got.numpy().astype(np.float64) - ref)
+    if kw.get("compute_dtype") == "bfloat16":
+        assert np.quantile(d, 0.99) <= 2e-2 and np.median(d) <= 4e-3, (np.quantile(d, 0.99),
+                                                                      np.median(d))
+    else:
         assert np.quantile(d, 0.99) <= 1e-4 and d.max() <= 1e-3, (np.quantile(d, 0.99), d.max())
-        assert tcascade.CascadeConfig(**kw) == tcascade.CascadeConfig(**{
-            f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tcascade.CascadeConfig)})
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11"):
-        tcascade.CascadeConfig(**kw)
+    assert tcascade.CascadeConfig(**kw) == tcascade.CascadeConfig(**{
+        f.name: getattr(jcfg, f.name) for f in dataclasses.fields(tcascade.CascadeConfig)})
 
 
 def test_config_fuse_junction_is_ported():

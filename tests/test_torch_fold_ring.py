@@ -9,9 +9,10 @@ level at α 0.6 (``tests/test_torch_cascade.py``'s bounds: q99 ≤ 1e-4,
 max ≤ 1e-3) and over five levels (q99 ≤ 5e-3), JAX's Newton–Schulz
 kernel in interpret mode against the port's plain Newton–Schulz. Last the
 serving and mesh wrappers: alone = batch, a mesh of one = ``stylize``,
-and ``stylize_spatial`` refusing both flags.
+and ``stylize_spatial`` with either flag against the call without it.
 """
 
+import dataclasses
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -307,11 +308,20 @@ def test_stylize_sharded_mesh_of_one_is_stylize(small_batch, kw):
 @pytest.mark.parametrize("kw", [dict(fold_transform=True), dict(ring_conv=True)],
                          ids=["fold", "ring"])
 def test_stylize_spatial_refuses_fold_and_ring(small_batch, kw):
+    """``stylize_spatial`` carries both flags (ROADMAP.md item 11g): on two
+    shards, over relu2_1 → relu1_1 (fold's levels), the output is the
+    same call without the flag to q99 ≤ 5e-3, the card phase's bar, and
+    max ≤ 1e-4 (measured max ≤ 1.6e-6: the same math, other sums; with
+    ``eigh``, whose hard mask sits on a knife edge at relu2_1, the
+    unsharded cascade's ring itself moves the output by 4.9e-4)."""
     params, content, style = small_batch
-    cfg = tcascade.CascadeConfig(relu_targets=("relu1_1",), **kw)
+    cfg = tcascade.CascadeConfig(relu_targets=("relu2_1", "relu1_1"), method=METHOD)
     cache = tcascade.precompute_style(params["encoder"], style, cfg)
     mesh = tmesh.create_mesh(2, axis_name="sp", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 11g"):
-        tmesh.stylize_spatial(params, content[:1], cache, 0.6, cfg, mesh)
+    on = tmesh.stylize_spatial(params, content[:1], cache, 0.6,
+                               dataclasses.replace(cfg, **kw), mesh)
+    off = tmesh.stylize_spatial(params, content[:1], cache, 0.6, cfg, mesh)
+    d = (on - off).abs().flatten()
+    assert float(torch.quantile(d, 0.99)) <= 5e-3 and float(d.max()) <= 1e-4, float(d.max())
     roadmap = (Path(__file__).resolve().parent.parent / "ROADMAP.md").read_text()
     assert "**11g." in roadmap

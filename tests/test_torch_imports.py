@@ -11,7 +11,7 @@ import torch
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "wct_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = ("jax", "jaxlib", "wct_tpu", "scripts")
+FORBIDDEN = ("jax", "jaxlib", "orbax", "wct_tpu", "scripts")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -130,23 +130,57 @@ def test_new_kernel_modules_are_scanned():
             "wct_tpu_torch/cli/train.py", "wct_tpu_torch/utils/tb.py"} <= names
 
 
+def test_eval_and_tool_modules_are_scanned():
+    """The evaluation package, the offline tools and the pack2 ops are
+    among the files the import scan reads."""
+    names = {str(p.relative_to(ROOT)) for p in PORT_FILES}
+    assert {"wct_tpu_torch/eval/__init__.py", "wct_tpu_torch/eval/frozen.py",
+            "wct_tpu_torch/eval/texture.py", "wct_tpu_torch/tools/t7_reader.py",
+            "wct_tpu_torch/tools/convert_t7.py", "wct_tpu_torch/tools/convert_tf_ckpt.py",
+            "wct_tpu_torch/tools/normalize_encoder.py", "wct_tpu_torch/tools/compare_outputs.py",
+            "wct_tpu_torch/tools/oracle.py", "wct_tpu_torch/ops/pack2.py"} <= names
+
+
+def test_eval_and_tools_import_without_jax_orbax_or_tensorflow():
+    code = (
+        "import sys\n"
+        "import wct_tpu_torch.eval, wct_tpu_torch.ops.pack2, wct_tpu_torch.tools.oracle\n"
+        "import wct_tpu_torch.tools.convert_t7, wct_tpu_torch.tools.convert_tf_ckpt\n"
+        "import wct_tpu_torch.tools.normalize_encoder, wct_tpu_torch.tools.compare_outputs\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in\n"
+        "       ('jax', 'jaxlib', 'orbax', 'wct_tpu', 'tensorflow', 'triton')]\n"
+        "assert not bad, bad\n"
+    )
+    subprocess.run([sys.executable, "-c", code], cwd=ROOT, check=True, timeout=120)
+
+
 @pytest.mark.parametrize(
     "kw,item",
     [(dict(compute_dtype="bfloat16", fuse_junction=True), None),
-     (dict(compute_dtype="bfloat16", method="newton_schulz_fast", pack2_junction=True), "item 11")],
+     (dict(compute_dtype="bfloat16", method="newton_schulz_fast", pack2_junction=True), "item 11h")],
     ids=["bf16_fuse_junction", "pack2_junction"],
 )
 def test_options_outside_the_throughput_slice_name_their_roadmap_item(kw, item):
-    """An option the port does not carry names its ROADMAP.md item; one it
-    carries (``item`` None: bf16 with ``fuse_junction``) builds."""
+    """Both configs build. The one place the port still refuses an option
+    names its ROADMAP.md item: pack2 on an even batch in
+    ``stylize_spatial`` (item 11h); an odd batch runs there unpacked."""
     from wct_tpu_torch.models import cascade
+    from wct_tpu_torch.parallel import mesh
 
+    cfg = cascade.CascadeConfig(**kw)
+    assert cfg.dtype == torch.bfloat16
     if item is None:
-        cfg = cascade.CascadeConfig(**kw)
-        assert cfg.fuse_junction and cfg.dtype == torch.bfloat16
+        assert cfg.fuse_junction
         return
+    params = cascade.init_params(0, ("relu1_1",), device="cpu")
+    cfg = cascade.CascadeConfig(relu_targets=("relu1_1",), **kw)
+    style = np.random.default_rng(0).random((16, 16, 3), np.float32)
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    sp = mesh.create_mesh(2, axis_name="sp", device="cpu")
+    content = np.random.default_rng(1).random((2, 32, 16, 3), np.float32)
     with pytest.raises(NotImplementedError, match=f"ROADMAP.md queue 1 {item}"):
-        cascade.CascadeConfig(**kw)
+        mesh.stylize_spatial(params, content, cache, 0.6, cfg, sp)
+    assert mesh.stylize_spatial(params, content[:1], cache, 0.6, cfg, sp).shape == (1, 32, 16, 3)
     roadmap = (ROOT / "ROADMAP.md").read_text()
     assert f"**{item[5:]}." in roadmap or f"{item[5:]}. **" in roadmap
 

@@ -6,6 +6,8 @@ the card's machine with
     python -m pytest --noconftest -q -m cuda tests/test_torch_mesh_cuda.py
 """
 
+import dataclasses
+
 from pathlib import Path
 
 import numpy as np
@@ -92,3 +94,38 @@ def test_one_shard_train_step_is_train_step(card, params):
         assert torch.equal(a, b)
         sa, sb = got.optimizer.state[a], ref.optimizer.state[b]
         assert torch.equal(sa["exp_avg"], sb["exp_avg"]) and torch.equal(sa["exp_avg_sq"], sb["exp_avg_sq"])
+
+
+@pytest.mark.parametrize("kw", [dict(fold_transform=True), dict(ring_conv=True)],
+                         ids=["fold", "ring"])
+def test_spatial_rewrites_on_four_shards(card, params, kw):
+    """``stylize_spatial`` with the fold or the ring on four shards of
+    cuda:0, one 256 × 192 image, five levels: against the same call
+    without the flag, f32 q99 ≤ 5e-3 (``chip_smoke.py``'s rewrite bar)."""
+    rng = np.random.default_rng(3)
+    x = rng.random((1, 256, 192, 3), np.float32)
+    cfg = cascade.CascadeConfig(method="newton_schulz_pallas")
+    cache = cascade.precompute_style(params["encoder"], rng.random((128, 128, 3), np.float32), cfg)
+    mesh = tmesh.create_mesh(4, axis_name="sp", device="cuda:0")
+    on = tmesh.stylize_spatial(params, x, cache, 0.6, dataclasses.replace(cfg, **kw), mesh)
+    off = tmesh.stylize_spatial(params, x, cache, 0.6, cfg, mesh)
+    d = (on - off).abs().flatten()
+    assert bool(torch.isfinite(on).all()) and float(torch.quantile(d[::2], 0.99)) <= 5e-3
+
+
+def test_dp_pack2_keeps_pairs_per_shard(card, params):
+    """Four images on two shards: each shard packs its pair and equals
+    ``stylize`` of its images with pack2, bitwise; six images on four
+    shards run with pack2 off."""
+    rng = np.random.default_rng(4)
+    content = rng.random((6, 128, 128, 3), np.float32)
+    cfg = cascade.CascadeConfig(method="newton_schulz_pallas", pack2_junction=True)
+    cache = cascade.precompute_style(params["encoder"], rng.random((128, 128, 3), np.float32), cfg)
+    out = tmesh.stylize_sharded(params, content[:4], cache, 0.6, cfg, tmesh.create_mesh(2, device="cuda:0"))
+    for i in range(2):
+        assert torch.equal(out[2 * i:2 * i + 2],
+                           cascade.stylize(params, content[2 * i:2 * i + 2], cache, 0.6, cfg))
+    off = dataclasses.replace(cfg, pack2_junction=False)
+    mesh = tmesh.create_mesh(4, device="cuda:0")
+    assert torch.equal(tmesh.stylize_sharded(params, content, cache, 0.6, cfg, mesh),
+                       tmesh.stylize_sharded(params, content, cache, 0.6, off, mesh))

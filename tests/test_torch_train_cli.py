@@ -141,20 +141,22 @@ def test_train_cli_init_decoder_and_resume_precedence(tmp_path):
 
 
 def test_train_cli_unported_options_name_their_roadmap_items(tmp_path):
-    """``--data-parallel`` is carried (ROADMAP.md queue 1 item 10): on the
-    CPU, a mesh of one, it trains as without it, the same bits; orbax
-    still names its item."""
+    """``--data-parallel`` (ROADMAP.md queue 1 item 10) and ``--ckpt-format
+    orbax`` (item 12) are carried. On the CPU, a mesh of one,
+    ``--data-parallel`` trains as without it, and the step-directory
+    backend as the npz one: the same decoder bits. The orbax run keeps
+    its ``--ckpt-keep`` last steps."""
     decs = []
-    for i, extra in enumerate(([], ["--data-parallel"])):
+    for i, extra in enumerate(([], ["--data-parallel"],
+                               ["--ckpt-format", "orbax", "--ckpt-keep", "1"])):
         ckpt = tmp_path / f"dp{i}"
-        cli.main(SMALL + ["--checkpoint-dir", str(ckpt), "--max-iter", "2", "--save-iter", "2",
+        cli.main(SMALL + ["--checkpoint-dir", str(ckpt), "--max-iter", "2", "--save-iter", "1",
                           "--summary-iter", "1", "--synthetic-pool", "4", *extra])
         decs.append(tck._flatten(tck.load_pytree(ckpt / "decoder_relu1_1.npz")))
-    for k, v in decs[0].items():
-        np.testing.assert_array_equal(decs[1][k], v, err_msg=k)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        cli.main(SMALL + ["--checkpoint-dir", str(tmp_path), "--ckpt-format", "orbax",
-                          "--max-iter", "1"])
+    for dec in decs[1:]:
+        for k, v in decs[0].items():
+            np.testing.assert_array_equal(dec[k], v, err_msg=k)
+    assert [p.name for p in (tmp_path / "dp2" / "orbax").iterdir()] == ["2"]
 
 
 def test_train_cli_save_on_signal(tmp_path):

@@ -90,3 +90,37 @@ def test_pool_sampler_on_the_card_gives_pool_variants(card):
                 for f in (lambda x: x, lambda x: x[:, ::-1])]
     for out in b1.cpu().numpy():
         assert any(np.array_equal(out, v) for v in variants)
+
+
+def test_step_directory_checkpoint_resumes_bitwise_on_the_card(card, tmp_path):
+    """Four relu1_1 steps from the bundle's encoder, saved each step by the
+    step-directory backend with ``keep=2``: two directories remain, the
+    highest restores the state bitwise, and two more steps from it give
+    the bits two more steps from the npz backend's restore give."""
+    from pathlib import Path
+
+    import numpy as np
+
+    from wct_tpu_torch.train import checkpoint as tck
+    from wct_tpu_torch.train import trainer as tt
+
+    bundle = Path(__file__).resolve().parent.parent / "weights" / "bundle.npz"
+    enc = tck.params_from_numpy(tck.load_pytree(bundle)["encoder"], card)
+    cfg = tt.TrainConfig(relu_target="relu1_1", batch_size=2, crop_size=64)
+    batch = torch.from_numpy(np.stack([tdata.synthetic_image(np.random.default_rng(i), 64)
+                                       for i in range(2)])).to(card)
+    state = tt.init_train_state(torch.Generator().manual_seed(0), cfg, card)
+    steps = tck.TrainCheckpointer(tmp_path / "s", fmt="orbax", keep=2)
+    npz = tck.TrainCheckpointer(tmp_path / "n")
+    for _ in range(4):
+        state, _ = tt.train_step(state, enc, batch, cfg)
+        steps.save(state.step, tt.state_tree(state))
+        npz.save(state.step, tt.state_tree(state))
+    assert steps.steps() == [3, 4]
+    a = tt.restore_train_state(steps.restore_latest(), cfg, card)
+    b = tt.restore_train_state(npz.restore_latest(), cfg, card)
+    for _ in range(2):
+        a, _ = tt.train_step(a, enc, batch, cfg)
+        b, _ = tt.train_step(b, enc, batch, cfg)
+    fa, fb = tck._flatten(tt.state_tree(a)), tck._flatten(tt.state_tree(b))
+    assert fa.keys() == fb.keys() and all(np.array_equal(fa[k], fb[k]) for k in fa)

@@ -232,8 +232,21 @@ def test_checkpointer_round_trip_and_canonical_tree(tmp_path, bundle):
 
 
 def test_checkpointer_orbax_names_its_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 12"):
-        tck.TrainCheckpointer(tmp_path, fmt="orbax")
+    """The step-directory backend (ROADMAP.md item 12) runs: the JAX
+    package's orbax layout ``<dir>/orbax/<step>/``, ``keep`` most recent,
+    restored from the highest step as the npz backend restores it."""
+    tree = {"params": {"w": np.arange(6, dtype=np.float32).reshape(2, 3)},
+            "opt_state": [[np.int32(3)], [np.int32(3)]], "step": np.int32(3)}
+    ck = tck.TrainCheckpointer(tmp_path, fmt="orbax", keep=2)
+    assert ck.restore_latest() is None
+    for step in (1, 2, 3):
+        ck.save(step, dict(tree, step=np.int32(step)))
+    assert sorted(p.name for p in (tmp_path / "orbax").iterdir()) == ["2", "3"]
+    got = tck._flatten(ck.restore_latest())
+    want = tck._flatten(tck.canonicalize(dict(tree, step=np.int32(3))))
+    assert got.keys() == want.keys()
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
     with pytest.raises(ValueError, match="unknown checkpoint format"):
         tck.TrainCheckpointer(tmp_path, fmt="pickle")
     roadmap = (BUNDLE.parent.parent / "ROADMAP.md").read_text()

@@ -78,8 +78,9 @@ def parse_args(argv=None) -> argparse.Namespace:
                         "only — --resume takes precedence")
     p.add_argument("--ckpt-format", choices=["npz", "orbax"], default="npz",
                    help="training-state backend: npz = single "
-                        "state_latest.npz; orbax is not ported "
-                        "(ROADMAP.md queue 1 item 12)")
+                        "state_latest.npz; orbax = step-indexed directories "
+                        "<checkpoint-dir>/orbax/<step>/ (the port's own "
+                        "on-disk form), restored from the highest step")
     p.add_argument("--ckpt-keep", type=int, default=3,
                    help="orbax: number of recent step checkpoints kept")
     p.add_argument("--batch-size", type=int, default=8)

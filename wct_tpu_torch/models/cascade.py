@@ -20,13 +20,13 @@ conv). Each level's transform is the WCT (with any truncation mode and
 AdaIN's per-image affine into its conv. Several styles blend through
 ``interpolate_style_caches`` and ``stylize_interp``. ``fold_transform``
 folds each image's affine into the first decoder conv at the levels of
-up to 128 channels (``:570-607``), and ``ring_conv`` runs every encoder
+up to 128 channels (``:570-607``), ``ring_conv`` runs every encoder
 and decoder conv outside the fused kernels without a reflect-padded
-copy (``ops/convs.py::conv2d_reflect_ring_nchw``).
-Every ``CascadeConfig`` field and check is kept, so the same illegal
-combinations raise the same ``ValueError``; options that are legal but
-not ported yet raise ``NotImplementedError`` naming the ROADMAP.md item
-that carries them.
+copy (``ops/convs.py::conv2d_reflect_ring_nchw``), and ``pack2_junction``
+(with its scopes ``pack2_tail_only`` and ``pack2_junction_only``) runs the
+64-channel tier on image pairs (``ops/pack2.py``; ``:477-566``,
+``:657-677``; even batches only). Every ``CascadeConfig`` field and check
+is kept, so the same illegal combinations raise the same ``ValueError``.
 
 PyTorch runs eagerly, so there is no jit; the models run NCHW
 internally and the public functions take and return ``[B, H, W, 3]``
@@ -44,6 +44,7 @@ from wct_tpu_torch.models import decoder as dec_lib
 from wct_tpu_torch.models import vgg
 from wct_tpu_torch.ops import adain as adain_ops
 from wct_tpu_torch.ops import junction as junction_ops
+from wct_tpu_torch.ops import pack2
 from wct_tpu_torch.ops import style_swap as swap_ops
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import to_nchw, to_nhwc
@@ -200,8 +201,6 @@ class CascadeConfig:
                 "exclusive scopes (each restricts pack2 to the OTHER "
                 "segment)"
             )
-        if self.pack2_junction:
-            raise wct_ops.not_ported("pack2_junction", wct_ops.ITEM_VARIANTS)
 
     def ns_iters_for(self, level: str) -> int | None:
         """The content-side NS iteration override for one cascade level."""
@@ -400,30 +399,61 @@ def stylize_fn(
     # Fused-junction eligibility is a static rule on the (padded) shape;
     # ineligible shapes take the unfused path.
     junction_ok = cfg.fuse_junction and x.shape[2] % 16 == 0 and x.shape[3] % 16 == 0
+    # pack2 (``wct_tpu/models/cascade.py:477-487``): even batches only.
+    # pack2_tail_only keeps the head and junctions unpacked; the packed
+    # relu1_1 tail needs ungrouped WCT and is off under pack2_junction_only.
+    pack2_all = cfg.pack2_junction and x.shape[0] % 2 == 0
+    pack2_ok = pack2_all and not cfg.pack2_tail_only
+    pack_tail_ok = pack2_all and cfg.wct_groups == 1 and not cfg.pack2_junction_only
+    single_conv_tail = len(dec_lib.decoder_layers("relu1_1")) == 1
     enc = params["encoder"]
     head_weights = tuple(
         enc[name][k] for name in ("conv0", "conv1_1", "conv1_2") for k in ("w", "b")
     )
-    # What the running state is: 'img' RGB, or 'pooled', the encoder
-    # state right after pool1. (The reference's third kind, relu1_1
-    # features out of a shallow junction, is never produced: see below.)
+    # What the running state is: 'img' RGB, 'pooled' the encoder state
+    # right after pool1, 'e1' relu1_1 features out of a shallow packed
+    # junction, 'e1p' the same kept packed for the packed tail. (The fused
+    # junction's 2→1 boundary runs unfused, below, so it makes no 'e1'.)
     state_kind = "img"
     ring = cfg.ring_conv
     for _ in range(cfg.passes):
         for li, level in enumerate(cfg.relu_targets):
+            style = style_cache[level]
+            dec_p = params["decoders"][level]
+            layers = dec_lib.decoder_layers(level)
+            if (level == "relu1_1" and pack_tail_ok and state_kind in ("img", "e1p")
+                    and single_conv_tail):
+                if state_kind == "img":
+                    x = pack2.head_pack2_shallow(x, *head_weights[:4], ring=ring,
+                                                 compose_pre=cfg.compose_conv0)
+                conv = dec_p[layers[0][1]]
+                x = pack2.tail_pack2(
+                    x, style.stats, alpha, conv["w"], conv["b"], transform=cfg.transform,
+                    adain_stats=style.adain, method=cfg.method, soft_trunc=cfg.soft_trunc,
+                    ns_iters=cfg.ns_iters_for(level), rel_trunc=cfg.rel_trunc, ring=ring,
+                )
+                if cfg.clip_between_levels:
+                    x = x.clamp(0.0, 1.0)
+                state_kind = "img"
+                continue
             if state_kind == "img":
-                if junction_ok and level != "relu1_1":
-                    p1 = junction_ops.encoder_head_nchw(x, *head_weights)
+                if (junction_ok or pack2_ok) and level != "relu1_1":
+                    if pack2_ok:
+                        p1 = pack2.head_pack2(x, *head_weights, ring=ring,
+                                              compose_pre=cfg.compose_conv0)
+                    else:
+                        p1 = junction_ops.encoder_head_nchw(x, *head_weights)
                     feats = vgg.encode_from_pool1_nchw(enc, p1, level, ring)
                 else:
                     feats = vgg.encode_multi_nchw(
                         enc, x, (level,), compose_pre=cfg.compose_conv0, ring=ring
                     )[level]
-            else:
+            elif state_kind == "pooled":
                 feats = vgg.encode_from_pool1_nchw(enc, x, level, ring)
-            style = style_cache[level]
-            dec_p = params["decoders"][level]
-            layers = dec_lib.decoder_layers(level)
+            elif state_kind == "e1p":
+                feats = pack2.unpack(x)
+            else:  # 'e1': the junction already produced relu1_1 features
+                feats = x
             nxt = cfg.relu_targets[li + 1] if li + 1 < len(cfg.relu_targets) else None
             # As the reference, fold only at C ≤ 128 (relu2_1, relu1_1),
             # where the O(9·C³) weight fold is small against the map it
@@ -451,10 +481,21 @@ def stylize_fn(
                 state_kind = "img"
                 continue
             transformed = _transform_level(feats, level, style, alpha, cfg)
+            if pack2_ok and nxt is not None and dec_lib.has_standard_tail(level):
+                d = dec_lib.decode_partial_nchw(dec_p, transformed, level, ring)
+                deep = nxt != "relu1_1"
+                # Keep relu1_1 packed where the packed tail takes it next.
+                keep_packed = not deep and pack_tail_ok and single_conv_tail
+                x = pack2.junction_pack2(
+                    d, *dec_lib.tail_weights(dec_p, level), *head_weights, deep=deep,
+                    clip=cfg.clip_between_levels, unpack_out=not keep_packed, ring=ring,
+                    compose_pre=cfg.compose_conv0,
+                )
+                state_kind = "pooled" if deep else ("e1p" if keep_packed else "e1")
             # The 2→1 boundary keeps the unfused decode + encode, as the
             # reference does (its shallow kernel variant does not
             # compile for the TPU), so both compute the same thing.
-            if (
+            elif (
                 junction_ok and nxt is not None and nxt != "relu1_1"
                 and dec_lib.has_standard_tail(level)
             ):

@@ -60,9 +60,18 @@ def adain_transform_cn(
     ``x·scale + bias`` is ``adain_from_stats_cn``. The cascade folds it
     into the relu1_1 decoder conv (``models/decoder.py::fold_affine_into_conv``).
     """
-    mu_c, var_c = gram.moments_cn(x)
+    return adain_affine_from_moments(*gram.moments_cn(x), stats, alpha, eps)
+
+
+def adain_affine_from_moments(
+    mu_c: torch.Tensor, var_c: torch.Tensor, stats: AdainStats,
+    alpha: torch.Tensor | float = 1.0, eps: float = DEFAULT_EPS,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """``adain_transform_cn`` from the content's moments (``mu_c``,
+    population ``var_c``, ``[B, C]`` each), as ``gram.moments_cn`` gives
+    them or as the height-sharded cascade combines them."""
     s = stats.std.float() * torch.rsqrt(var_c + eps)
-    alpha = scalar_on(alpha, x.device)
+    alpha = scalar_on(alpha, mu_c.device)
     scale = alpha * s + (1.0 - alpha)
     bias = alpha * (stats.mean.float() - s * mu_c)
     return scale, bias

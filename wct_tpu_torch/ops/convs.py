@@ -293,7 +293,7 @@ def conv2d_valid_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
     return _stock_conv(x, w, b)
 
 
-def _stock_conv(x, w, b=None, padding: int = 0, groups: int = 1):
+def _stock_conv(x, w, b=None, padding: int | tuple[int, int] = 0, groups: int = 1):
     """``F.conv2d(x, w, b, padding=padding, groups=groups)`` on the port's
     routes, ``w`` and ``b`` already in ``x``'s dtype (``b`` may be None).
 
@@ -301,8 +301,8 @@ def _stock_conv(x, w, b=None, padding: int = 0, groups: int = 1):
     bias. On the card the conv runs under ``conv_by_shape``. Its key is
     ``(x, w, dtype, device)`` for a VALID ungrouped conv, the key every
     earlier route has; a zero-padded or grouped conv adds ``padding=p``
-    and ``groups=g`` before the device, so it never shares a choice with
-    a VALID conv of the same tensor shapes.
+    (or ``padding=(ph, pw)``) and ``groups=g`` before the device, so it
+    never shares a choice with a VALID conv of the same tensor shapes.
     """
     if x.device.type != "cuda":
         if x.dtype == torch.bfloat16:
@@ -348,24 +348,165 @@ def conv2d_reflect_ring_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) 
     return out + b[:, None, None]
 
 
+def conv2d_ring_rows_nchw(
+    xh: torch.Tensor, w: torch.Tensor, b: torch.Tensor, top_edge: bool, bottom_edge: bool
+) -> torch.Tensor:
+    """``conv2d_reflect_ring_nchw``'s math on a band of rows of a taller
+    map, for a height shard (``parallel.mesh``): ``xh [B, C, r + 2, W]`` is
+    the band with one row above and below it, the neighbours' rows, or at
+    the image's top (``top_edge``) and bottom (``bottom_edge``) the rows a
+    reflect pad would put there; a 3×3 ``w`` gives ``[B, Co, r, W]``.
+
+    The bulk is a conv VALID over the rows and zero-padded over the width,
+    so no reflect-padded copy of the band is made. An image edge the band
+    holds is recomputed from the ring's row strip, the two rows next to it
+    reflected outwards and padded sideways, and the two columns from the
+    ring's side strips (which own the corners); the bias is added last.
+    """
+    k = w.shape[2]
+    if k != 3 or w.shape[3] != 3:
+        raise ValueError(f"a band of rows takes a 3×3 conv, got {k}×{w.shape[3]}")
+    r, wd = xh.shape[2] - 2, xh.shape[3]
+    w, b = w.to(xh.dtype), b.to(xh.dtype)
+    out = _stock_conv(xh, w, padding=(0, 1))
+    sideways = lambda t: F.pad(t, (1, 1, 0, 0), mode="reflect")  # noqa: E731
+    if top_edge:
+        out[:, :, :1] = _stock_conv(sideways(xh[:, :, :3]), w)
+    if bottom_edge:
+        out[:, :, r - 1:] = _stock_conv(sideways(xh[:, :, -3:]), w)
+    out[..., :1] = _stock_conv(F.pad(xh[..., :2], (1, 0, 0, 0), mode="reflect"), w)
+    out[..., wd - 1:] = _stock_conv(F.pad(xh[..., -2:], (0, 1, 0, 0), mode="reflect"), w)
+    return out + b[:, None, None]
+
+
 def conv2d_reflect_perimage_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Reflect conv where every image has its own weights
     (``wct_tpu/ops/convs.py:135-171``): ``x [B, Ci, H, W]``,
-    ``w [B, Co, Ci, k, k]``, ``b [B, Co]`` → ``[B, Co, H, W]``.
-
-    One grouped conv (``groups=B``) over the reflect-padded map seen as
-    ``[1, B·Ci, ·, ·]``: output group g, channels ``[g·Co, (g+1)·Co)``,
-    is image g's. Weights and bias are cast to ``x``'s dtype (the
-    transform fold makes them in f32), the bias added after the conv.
+    ``w [B, Co, Ci, k, k]``, ``b [B, Co]`` → ``[B, Co, H, W]``: the
+    reflect pad, then ``conv2d_valid_perimage_nchw``.
     """
-    nb, ci = x.shape[:2]
-    co, k = w.shape[1], w.shape[3]
+    k = w.shape[3]
     if k != w.shape[4]:
         raise ValueError(f"square kernels only, got {k}×{w.shape[4]}")
-    xp = pad_reflect_nchw(x, (k - 1) // 2)
-    w, b = w.to(x.dtype), b.to(x.dtype)
+    return conv2d_valid_perimage_nchw(pad_reflect_nchw(x, (k - 1) // 2), w, b)
+
+
+def conv2d_valid_perimage_nchw(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """VALID conv + bias with per-image weights of an already padded ``xp``
+    (a height shard pads with its neighbours' rows, ``parallel.mesh``).
+
+    One grouped conv (``groups=B``) over the map seen as
+    ``[1, B·Ci, ·, ·]``: output group g, channels ``[g·Co, (g+1)·Co)``,
+    is image g's. Weights and bias are cast to ``xp``'s dtype (the
+    transform fold makes them in f32), the bias added after the conv.
+    """
+    nb, ci = xp.shape[:2]
+    co, k = w.shape[1], w.shape[3]
+    w, b = w.to(xp.dtype), b.to(xp.dtype)
     y = _stock_conv(xp.reshape(1, nb * ci, *xp.shape[2:]), w.reshape(nb * co, ci, k, k), groups=nb)
     return y.reshape(nb, co, *y.shape[2:]) + b[:, :, None, None]
+
+
+def oihw_from_hwio(w) -> torch.Tensor:
+    """A conv weight in the JAX package's HWIO layout (an array or a
+    tensor) as the port's OIHW tensor, the same values."""
+    return torch.as_tensor(w).permute(3, 2, 0, 1).contiguous()
+
+
+def quantize_weight_int8(w: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-output-channel symmetric int8 quantization of OIHW weights
+    (``wct_tpu/ops/convs.py:201-214``): ``(wq int8 [co, ci, kh, kw],
+    scale f32 [co])`` with ``wq·scale ≈ w``.
+
+    The scale is ``max|w| / 127`` per output channel, floored at 1e-12;
+    ``wq = clip(round(w / scale), ±127)``, rounding half to even as
+    ``jnp.round`` does, so the JAX package's HWIO result, transposed, is
+    the same bits (``oihw_from_hwio``).
+    """
+    scale = (w.float().abs().amax(dim=(1, 2, 3)) / 127.0).clamp_min(1e-12)
+    wq = torch.round(w.float() / scale[:, None, None, None]).clamp(-127, 127)
+    return wq.to(torch.int8), scale
+
+
+def quantize_act_int8(x: torch.Tensor, act_scale=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-tensor symmetric int8 quantization of an activation:
+    ``(xq int8, sx f32 scalar)``, ``sx`` the static ``act_scale`` or
+    ``max|x| / 127`` (the dynamic default), floored at 1e-12."""
+    if act_scale is None:
+        sx = x.float().abs().amax() / 127.0
+    else:
+        sx = torch.as_tensor(act_scale, dtype=torch.float32, device=x.device)
+    sx = sx.clamp_min(1e-12)
+    return torch.round(x.float() / sx).clamp(-127, 127).to(torch.int8), sx
+
+
+def conv2d_int8_sums_nchw(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact int32 sums of a VALID stride-1 conv of int8 ``xq [B, Ci,
+    H, W]`` with int8 OIHW ``wq``: ``[B, Co, H−k+1, W−k+1]``.
+
+    The JAX package accumulates in int32 (``preferred_element_type``); an
+    f32 conv would not be exact (9·512·127² ≈ 7.4e7 > 2²⁴). On the card
+    the taps are gathered into patches ``[B·H·W, k·k·Ci]`` and multiplied
+    by the weights ``[k·k·Ci, Co]`` in ``torch._int_mm`` (cuBLASLt's int8
+    product, int32 sums), both sides zero-padded to the multiples of 8
+    it needs; on the CPU a float64 conv, exact at these sizes (|sum| <
+    2⁵³), rounded back to int32.
+    """
+    if xq.device.type != "cuda":
+        return F.conv2d(xq.double(), wq.double()).round().to(torch.int32)
+    return _int8_sums_by_patches(xq, wq, torch._int_mm)
+
+
+def _int8_sums_by_patches(xq: torch.Tensor, wq: torch.Tensor, int_mm) -> torch.Tensor:
+    """``conv2d_int8_sums_nchw`` as the card computes it, with the int8 ×
+    int8 → int32 product ``int_mm`` passed in (the tests give the CPU an
+    exact stand-in for ``torch._int_mm``)."""
+    k = wq.shape[2]
+    b, ci, h, w = xq.shape
+    ho, wo = h - k + 1, w - k + 1
+    xn = xq.permute(0, 2, 3, 1)
+    patches = torch.stack(
+        [xn[:, dy:dy + ho, dx:dx + wo] for dy in range(k) for dx in range(k)], dim=3
+    ).reshape(b * ho * wo, k * k * ci)
+    wm = wq.permute(2, 3, 1, 0).reshape(k * k * ci, -1)
+    co = wm.shape[1]
+    pk, pn = -(k * k * ci) % 8, -co % 8
+    if pk:
+        patches = F.pad(patches, (0, pk))
+    if pk or pn:
+        wm = F.pad(wm, (0, pn, 0, pk))
+    rows = patches.shape[0]
+    if rows <= 16:  # cuBLASLt's int8 product needs more than 16 rows
+        patches = F.pad(patches, (0, 0, 0, 17 - rows))
+    y = int_mm(patches.contiguous(), wm.contiguous())[:rows, :co]
+    return y.reshape(b, ho, wo, co).permute(0, 3, 1, 2)
+
+
+def conv2d_reflect_int8_nchw(
+    x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, b: torch.Tensor, act_scale=None,
+) -> torch.Tensor:
+    """Reflect conv with int8 weights and activations
+    (``wct_tpu/ops/convs.py:217-257``): ``x [B, Ci, H, W]``, ``wq`` int8
+    OIHW with its per-output-channel ``w_scale`` (``quantize_weight_int8``).
+
+    The reflect-padded ``x`` is quantized per tensor (``quantize_act_int8``:
+    the dynamic max, or a static calibrated ``act_scale``), the conv sums
+    exactly in int32 (``conv2d_int8_sums_nchw``), and the result is
+    dequantized in the reference's order, ``yq·(sx·w_scale)`` then ``+ b``,
+    in f32, and returned in ``x``'s dtype.
+    """
+    xp = pad_reflect_nchw(x, (wq.shape[2] - 1) // 2)
+    xq, sx = quantize_act_int8(xp, act_scale)
+    yq = conv2d_int8_sums_nchw(xq, wq)
+    y = yq.float() * (sx * w_scale.float())[:, None, None]
+    return (y + b.float()[:, None, None]).to(x.dtype)
+
+
+def conv2d_reflect_int8(
+    x: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor, b: torch.Tensor, act_scale=None,
+) -> torch.Tensor:
+    """``conv2d_reflect_int8_nchw`` on ``[B, H, W, C]``; ``wq`` stays OIHW."""
+    return to_nhwc(conv2d_reflect_int8_nchw(to_nchw(x), wq, w_scale, b, act_scale))
 
 
 def maxpool2_nchw(x: torch.Tensor) -> torch.Tensor:

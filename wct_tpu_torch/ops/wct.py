@@ -53,10 +53,8 @@ Method = Literal[
 # (wct_tpu/ops/wct.py:59-66).
 _AUTO_EIGH_MAX_C = 64
 
-# Where each part that is not ported yet is carried in ROADMAP.md.
-ITEM_VARIANTS = "ROADMAP.md queue 1 item 11 (opt-in variants)"
-ITEM_SPATIAL = "ROADMAP.md queue 1 item 11g (fold and ring in stylize_spatial)"
-ITEM_ORBAX = "ROADMAP.md queue 1 item 12 (orbax checkpoints)"
+# Where the one part that is not ported yet is carried in ROADMAP.md.
+ITEM_PACK2_SPATIAL = "ROADMAP.md queue 1 item 11h (pack2 in stylize_spatial)"
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -481,9 +479,15 @@ def wct_transform_cn(
         soft_trunc=soft_trunc, ns_iters=ns_iters, trunc_topk=trunc_topk,
         rel_trunc=rel_trunc,
     )
+    return dense_affine(blended), bias
+
+
+def dense_affine(blended: torch.Tensor) -> torch.Tensor:
+    """An affine's matrix as ``[B, C, C]``: grouped blocks ``[B, G, C/G,
+    C/G]`` expanded to the dense block-diagonal, a dense one as it is."""
     if blended.dim() == 4:
-        blended = torch.stack([torch.block_diag(*blocks) for blocks in blended])
-    return blended, bias
+        return torch.stack([torch.block_diag(*blocks) for blocks in blended])
+    return blended
 
 
 def wct_transform(

@@ -51,7 +51,10 @@ from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import (
     compose_1x1_into_conv,
     conv2d_reflect_nchw,
+    conv2d_reflect_perimage_nchw,
+    conv2d_ring_rows_nchw,
     conv2d_valid_nchw,
+    conv2d_valid_perimage_nchw,
     maxpool2_nchw,
     to_nhwc,
     upsample_nearest2_nchw,
@@ -322,11 +325,20 @@ def stylize_sharded(
     entry's stream, so its output is the same bits as ``stylize`` on the
     same images (the cascade has no cross-image math). Returns the
     whole ``[B, H, W, 3]`` on the first device.
+
+    ``pack2_junction``, as the reference (``wct_tpu/parallel/mesh.py:118-139``):
+    when the batch divides the mesh each shard keeps it, and its
+    ``b % 2`` gate reads the shard's own batch; otherwise every shard
+    runs unpacked. The port drops the scopes with the flag, where the
+    reference's ``dataclasses.replace`` would raise on a scoped config.
     """
     cfg = _unfused(cfg)
     x = content if isinstance(content, Sharded) else shard_batch(content, mesh, axis_name)
     if x.placement.dim != 0:
         raise ValueError("stylize_sharded takes a batch-sharded value (shard_batch)")
+    if cfg.pack2_junction and x.shape[0] % len(mesh.devices):
+        cfg = dataclasses.replace(cfg, pack2_junction=False, pack2_tail_only=False,
+                                  pack2_junction_only=False)
     live = [i for i, s in enumerate(x.shards) if s.shape[0]]
     devs = mesh.devices
     params_of = {i: replicate(mesh, params, devs[i]) for i in live}
@@ -356,11 +368,19 @@ def _row_of(xs: list[torch.Tensor], g: int, dev: torch.device) -> torch.Tensor:
     raise IndexError("row beyond the sharded map")
 
 
-def _halo_conv(mesh: Mesh, xs: list, wb: list, relu: bool) -> list:
+def _halo_conv(mesh: Mesh, xs: list, wb: list, relu: bool, ring: bool = False,
+               perimage: bool = False) -> list:
     """A reflect-padded conv (+ ReLU) of a map split by height: each shard
     takes its neighbours' edge rows (at the image's top and bottom the
     reflected rows 1 and H − 2, from whichever shard holds them), pads its
-    width by reflection and runs the VALID conv. A 1×1 conv needs no halo."""
+    width by reflection and runs the VALID conv. A 1×1 conv needs no halo.
+
+    ``ring``: the width's reflect pad gives way to the ring conv's
+    (``convs.conv2d_ring_rows_nchw``: zero-padded bulk, side strips, and
+    the ring's row strip where the shard holds the image's top or bottom
+    edge). ``perimage``: ``wb`` holds per-image weights ``(w [B, Co, Ci,
+    k, k], b [B, Co])``, the folded transform's
+    (``convs.conv2d_valid_perimage_nchw`` on the halo rows)."""
     k = wb[0][0].shape[-1]
     if k == 1:
         tops = bottoms = [None] * len(xs)
@@ -377,18 +397,24 @@ def _halo_conv(mesh: Mesh, xs: list, wb: list, relu: bool) -> list:
             bottoms.append(_row_of(xs, end if s < len(xs) - 1 else h - 2, x.device))
             start = end
 
+    last = len(xs) - 1
+
     def conv(i, x, top, bottom):
         if top is None:
-            y = conv2d_reflect_nchw(x, *wb[i])
+            y = (conv2d_reflect_perimage_nchw if perimage else conv2d_reflect_nchw)(x, *wb[i])
+        elif ring:
+            xh = torch.cat([top, x, bottom], dim=2)
+            y = conv2d_ring_rows_nchw(xh, *wb[i], top_edge=i == 0, bottom_edge=i == last)
         else:
             xp = F.pad(torch.cat([top, x, bottom], dim=2), (1, 1, 0, 0), mode="reflect")
-            y = conv2d_valid_nchw(xp, *wb[i])
+            y = (conv2d_valid_perimage_nchw if perimage else conv2d_valid_nchw)(xp, *wb[i])
         return torch.relu(y) if relu else y
 
     return each(mesh, conv, xs, tops, bottoms)
 
 
-def _encode(mesh: Mesh, enc: list, xs: list, target: str, compose_pre: bool) -> list:
+def _encode(mesh: Mesh, enc: list, xs: list, target: str, compose_pre: bool,
+            ring: bool = False) -> list:
     """``vgg.encode_multi_nchw(..., (target,))`` on a height-split map:
     the same layer list, shard by shard."""
     composed = {}  # device → conv0 folded into conv1_1, once per device
@@ -408,20 +434,36 @@ def _encode(mesh: Mesh, enc: list, xs: list, target: str, compose_pre: bool) -> 
             wb = [composed[e["conv0"]["w"].device] for e in enc]
         else:
             wb = [(e[name]["w"], e[name]["b"]) for e in enc]
-        xs = _halo_conv(mesh, xs, wb, relu=spec[0] == "conv")
+        xs = _halo_conv(mesh, xs, wb, relu=spec[0] == "conv", ring=ring)
     return xs
 
 
-def _decode(mesh: Mesh, dec: list, xs: list, target: str) -> list:
-    """``decoder.decode_nchw`` on a height-split map."""
+def _decode(mesh: Mesh, dec: list, xs: list, target: str, ring: bool = False,
+            start: int = 0) -> list:
+    """``decoder.decode_nchw`` on a height-split map, from layer ``start``."""
     layers = dec_lib.decoder_layers(target)
-    for li, spec in enumerate(layers):
+    for li in range(start, len(layers)):
+        spec = layers[li]
         if spec[0] == "upsample":
             xs = each(mesh, lambda i, x: upsample_nearest2_nchw(x), xs)
             continue
         wb = [(d[spec[1]]["w"], d[spec[1]]["b"]) for d in dec]
-        xs = _halo_conv(mesh, xs, wb, relu=li != len(layers) - 1)
+        xs = _halo_conv(mesh, xs, wb, relu=li != len(layers) - 1, ring=ring)
     return xs
+
+
+def _decode_folded(mesh: Mesh, dec: list, feats: list, target: str, affine) -> list:
+    """``decoder.decode_folded_nchw`` on a height-split map: the level's
+    per-image affine ``(m, bias)`` (on the first device) folded into the
+    first decoder conv once, that conv run per image on each shard's halo
+    rows, then the rest of the decoder, unringed, as the cascade's folded
+    decode runs it."""
+    layers = dec_lib.decoder_layers(target)
+    first = dec[0][layers[0][1]]
+    w_fold, b_fold = dec_lib.fold_affine_into_conv(*affine, first["w"], first["b"])
+    wb = [(w_fold.to(d), b_fold.to(d)) for d in mesh.devices]
+    xs = _halo_conv(mesh, feats, wb, relu=len(layers) > 1, perimage=True)
+    return _decode(mesh, dec, xs, target, start=1)
 
 
 def combine_moments(sums, means, counts):
@@ -499,6 +541,19 @@ def _transform(mesh: Mesh, feats: list, level: str, caches: list, alpha, cfg) ->
                 feats, ms, bs)
 
 
+def _affine(mesh: Mesh, feats: list, level: str, caches: list, alpha, cfg):
+    """The level's per-image affine for the fold, from statistics combined
+    over the shards, on the first device: AdaIN's diagonal ``(scale,
+    bias)`` or the WCT's dense ``(M, bias)`` (``cascade._level_affine``)."""
+    style = caches[0][level]
+    if cfg.transform == "adain":
+        return adain_ops.adain_affine_from_moments(*_shard_moments(mesh, feats), style.adain, alpha)
+    cov, mean = sharded_covariance(mesh, feats, cfg.wct_groups)
+    blended, bias = wct_ops.wct_affine_from_cov(
+        cov, mean, style.stats, alpha, **cascade_lib.wct_kw(cfg, level))
+    return wct_ops.dense_affine(blended), bias
+
+
 @torch.no_grad()
 def encode_spatial(
     encoder_params: dict, images, target: str, mesh: Mesh, axis_name: str = "sp",
@@ -550,12 +605,23 @@ def stylize_spatial(
     deterministic for a fixed mesh, but not bitwise equal to the
     unsharded result; use ``stylize_sharded`` where bits must match.
 
-    The halo convs are this function's own, so ``fold_transform`` and
-    ``ring_conv`` are not carried here: either raises.
+    The layout rewrites run as the reference's sharded cascade runs them
+    (it turns off ``fuse_junction`` alone, ``wct_tpu/parallel/mesh.py:104-116``):
+
+    - ``fold_transform``: at the levels of up to 128 channels (not the
+      swap level) the combined statistics give each image's affine once,
+      it is folded into the first decoder conv, and each shard runs the
+      per-image weights over its halo rows; the rest of that decoder
+      runs as the cascade's folded decode does, without the ring.
+    - ``ring_conv``: every 3×3 conv keeps its row halos, and the width's
+      reflect pad gives way to the ring conv's zero-padded bulk and
+      column strips; a shard holding the image's top or bottom edge
+      takes the ring's row strip there (``convs.conv2d_ring_rows_nchw``).
+    - ``pack2_junction``: the reference's gate reads the batch, so an odd
+      batch runs unpacked, the same call as without the flag. The halo
+      convs here are this function's own, not the cascade's, so an even
+      batch, which the reference packs, raises, naming its ROADMAP item.
     """
-    for on, what in ((cfg.fold_transform, "fold_transform"), (cfg.ring_conv, "ring_conv")):
-        if on:
-            raise wct_ops.not_ported(f"{what} in stylize_spatial", wct_ops.ITEM_SPATIAL)
     check_axis(mesh, axis_name)
     cfg = _unfused(cfg)
     set_numerics(cfg.dtype)
@@ -563,6 +629,9 @@ def stylize_spatial(
         content = gather(content)
     devs = mesh.devices
     x, h, w = cascade_lib.padded_input(content, cfg, devs[0])
+    if cfg.pack2_junction and x.shape[0] % 2 == 0:
+        raise wct_ops.not_ported("pack2_junction on an even batch in stylize_spatial",
+                                 wct_ops.ITEM_PACK2_SPATIAL)
     block = max(vgg.TARGET_SCALE[t] for t in cfg.relu_targets)
     xs = _split_rows(mesh, x, _height_rows(x.shape[2], len(devs), block))
     enc = [replicate(mesh, params["encoder"], d) for d in devs]
@@ -570,9 +639,15 @@ def stylize_spatial(
     caches = [replicate(mesh, style_cache, d) for d in devs]
     for _ in range(cfg.passes):
         for level in cfg.relu_targets:
-            feats = _encode(mesh, enc, xs, level, cfg.compose_conv0)
-            feats = _transform(mesh, feats, level, caches, alpha, cfg)
-            xs = _decode(mesh, [d[level] for d in decs], feats, level)
+            feats = _encode(mesh, enc, xs, level, cfg.compose_conv0, cfg.ring_conv)
+            dec = [d[level] for d in decs]
+            if (cfg.fold_transform and vgg.TARGET_CHANNELS[level] <= 128
+                    and not (cfg.swap5 and level == "relu5_1")):
+                xs = _decode_folded(mesh, dec, feats, level,
+                                    _affine(mesh, feats, level, caches, alpha, cfg))
+            else:
+                feats = _transform(mesh, feats, level, caches, alpha, cfg)
+                xs = _decode(mesh, dec, feats, level, cfg.ring_conv)
             if cfg.clip_between_levels:
                 xs = each(mesh, lambda i, y: y.clamp(0.0, 1.0), xs)
     out = torch.cat([y.to(devs[0]) for y in xs], dim=2)

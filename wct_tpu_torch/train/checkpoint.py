@@ -23,12 +23,12 @@ and from that layout.
 from __future__ import annotations
 
 import os
+import shutil
 from typing import Any
 
 import numpy as np
 import torch
 
-from wct_tpu_torch.ops.wct import ITEM_ORBAX, not_ported
 from wct_tpu_torch.utils.device import resolve_device
 
 _SEP = "/"
@@ -197,35 +197,76 @@ def canonicalize(tree: Any) -> Any:
 
 
 class TrainCheckpointer:
-    """Periodic training-state checkpoints: one ``<dir>/state_latest.npz``,
-    overwritten atomically. ``save`` is synchronous, so a save on a signal
-    is on disk before the process exits.
+    """Periodic training-state checkpoints with two backends, as the JAX
+    package's (``wct_tpu/train/checkpoint.py:113-168``). ``save`` is
+    synchronous in both, so a save on a signal is on disk before the
+    process exits, and both restore the same canonical tree.
 
-    The JAX package's second backend, orbax, is a JAX library; asking for
-    it raises, naming its ROADMAP item. ``keep`` (orbax's retention) is
-    taken for the same signature and has nothing to retain here.
+    - ``npz``: one ``<dir>/state_latest.npz``, overwritten atomically;
+      the file both packages read.
+    - ``orbax``: step-indexed directories ``<dir>/orbax/<step>/``, the
+      ``keep`` most recent kept, restored from the highest step. orbax
+      is a JAX library, so the on-disk form is the port's own: each step
+      directory holds the tree as ``state.npz`` (``save_pytree``'s flat
+      keys). A step is written under a temporary name in the same
+      directory and renamed into place, so a directory with a step's
+      name is always complete. Saving a step that is already the latest
+      does nothing, as orbax's manager is used there.
     """
 
     def __init__(self, ckpt_dir: str | os.PathLike, fmt: str = "npz", keep: int = 3):
         if fmt not in ("npz", "orbax"):
             raise ValueError(f"unknown checkpoint format: {fmt!r}")
-        if fmt == "orbax":
-            raise not_ported("the orbax checkpoint backend", ITEM_ORBAX)
+        if keep < 1:
+            raise ValueError(f"keep must be >= 1, got {keep}")
+        self.fmt = fmt
+        self.keep = keep
         self.dir = os.path.abspath(str(ckpt_dir))
         os.makedirs(self.dir, exist_ok=True)
+        if fmt == "orbax":
+            os.makedirs(self._steps_dir, exist_ok=True)
 
     @property
     def _npz_path(self) -> str:
         return os.path.join(self.dir, "state_latest.npz")
 
+    @property
+    def _steps_dir(self) -> str:
+        return os.path.join(self.dir, "orbax")
+
+    def steps(self) -> list[int]:
+        """The saved steps of the ``orbax`` backend, ascending."""
+        return sorted(int(n) for n in os.listdir(self._steps_dir) if n.isdigit())
+
     def save(self, step: int, tree: Any) -> None:
-        save_pytree(self._npz_path, tree)
+        if self.fmt == "npz":
+            save_pytree(self._npz_path, tree)
+            return
+        saved = self.steps()
+        if saved and saved[-1] == step:
+            return  # e.g. a save-iter boundary and a save on a signal at one step
+        tmp = os.path.join(self._steps_dir, f".{step}.tmp-{os.getpid()}")
+        shutil.rmtree(tmp, ignore_errors=True)
+        os.makedirs(tmp)
+        save_pytree(os.path.join(tmp, "state.npz"), tree)
+        final = os.path.join(self._steps_dir, str(step))
+        shutil.rmtree(final, ignore_errors=True)
+        os.rename(tmp, final)
+        for old in sorted(set(saved + [step]))[: -self.keep]:
+            shutil.rmtree(os.path.join(self._steps_dir, str(old)), ignore_errors=True)
 
     def restore_latest(self) -> Any | None:
         """The latest saved training state (canonical tree) or None."""
-        if not os.path.exists(self._npz_path):
+        if self.fmt == "npz":
+            path = self._npz_path
+        else:
+            saved = self.steps()
+            if not saved:
+                return None
+            path = os.path.join(self._steps_dir, str(saved[-1]), "state.npz")
+        if not os.path.exists(path):
             return None
-        return load_pytree(self._npz_path)
+        return load_pytree(path)
 
     def close(self) -> None:
         pass
