@@ -70,7 +70,8 @@ that does not (pack2 off, bitwise) (``mesh_dp``); one 2048×2048 image
 split by height, the halo encoder, the combined covariances against
 float64, each level against the unsharded cascade, and
 ``fold_transform``, ``ring_conv`` and pack2 on the one image each against
-the call without (``mesh_spatial``); the same image unsharded with and without
+the call without, and pack2 in each scope, f32 and bf16, on the image and
+a second one, an even batch that packs (``mesh_spatial``); the same image unsharded with and without
 ``ring_conv`` (``ring_2048``: ms in turns, peak bytes per level); the
 data-parallel train step against
 ``train_step`` (``mesh_train``); and ``--data-parallel`` through both
@@ -3238,7 +3239,110 @@ def mesh_spatial_rewrites(params, style, img, mesh) -> dict:
                                       dataclasses.replace(cfg, pack2_junction=True), mesh)
     check(torch.equal(packed, base), "mesh_spatial: pack2 on one image is not the call without it")
     row["pack2_one_image_bitwise_equal_off"] = True
+    del base, packed
+    row["mesh_spatial_pack2"] = mesh_spatial_pack2(params, style, img, mesh)
     return row
+
+
+@contextlib.contextmanager
+def conv_weight_shapes():
+    """Records ``[Co, Ci, k, k]`` of every conv run in the block: the
+    cascade's (``convs.conv2d_valid_nchw``, which ``conv2d_reflect_nchw``
+    calls) and ``stylize_spatial``'s (``parallel.mesh``'s own binding of
+    it for the halo convs; its 1×1 convs go through
+    ``conv2d_reflect_nchw``). Yields the Counter it fills."""
+    shapes, plain = Counter(), convs.conv2d_valid_nchw
+
+    def recorded(x, w, b):
+        shapes[tuple(w.shape)] += 1
+        return plain(x, w, b)
+
+    convs.conv2d_valid_nchw = mesh_lib.conv2d_valid_nchw = recorded
+    try:
+        yield shapes
+    finally:
+        convs.conv2d_valid_nchw = mesh_lib.conv2d_valid_nchw = plain
+
+
+MESH_PACK2_ROUTES = {
+    "f32_ns_pallas_pack2": dict(method="newton_schulz_pallas", pack2_junction=True),
+    "f32_ns_pallas_tail_only": dict(method="newton_schulz_pallas", pack2_junction=True,
+                                    pack2_tail_only=True),
+    "f32_ns_pallas_junction_only": dict(method="newton_schulz_pallas", pack2_junction=True,
+                                        pack2_junction_only=True),
+    "bf16_throughput_pack2": dict(THROUGHPUT, pack2_junction=True),
+}
+
+
+def mesh_spatial_pack2(params, style, img, mesh) -> dict:
+    """``stylize_spatial`` with pack2 on an even batch: the phase's image
+    and a second seeded one, on the f32 Newton–Schulz-kernel route in each
+    pack2 scope and on the bf16 throughput route. Each against the same
+    call without pack2: q99 ≤ REWRITE_Q99_LIMIT, finite, the same launches
+    (5 ``ns_sqrtm`` on the f32 route, 5 Grams a shard), two calls bitwise
+    equal; the conv weight shapes the walk runs, over the shard count, are
+    the ones the unsharded cascade runs with the config (a 64-px batch of
+    two: the shapes do not depend on the size); ms on and off in turns,
+    card peak bytes of each.
+
+    A call of two 2048² images leaves 70–84 GB reserved by the caching
+    allocator, pack2 on or off: each shard's stream frees its blocks only
+    once the card has passed them, and the host runs ahead. Near the
+    card's 80 GiB a call frees every cached block and allocates again (a
+    retry: on "NVIDIA H100 80GB HBM3, 700.00 W" one took a 1014-ms call to
+    1732 ms, ``tools/spatial_pack2_turns``), so the row records the
+    retries its turns met: its ms compare on and off only where that
+    count is 0."""
+    n = len(mesh.devices)
+    second = torch.as_tensor(np.random.default_rng(SEED + 32).random(
+        tuple(img.shape), dtype=np.float32), device=DEV)
+    pair = torch.cat([img, second])
+    small = pair[:, :64, :64]
+    rows, offs = {}, {}
+    for route, kw in MESH_PACK2_ROUTES.items():
+        cfg = cascade.CascadeConfig(**kw)
+        cfg_off = dataclasses.replace(cfg, pack2_junction=False, pack2_tail_only=False,
+                                      pack2_junction_only=False)
+        cache = cascade.precompute_style(params["encoder"], style, cfg)
+        run_on = lambda: mesh_lib.stylize_spatial(params, pair, cache, ALPHA, cfg, mesh)  # noqa: E731
+        run_off = lambda: mesh_lib.stylize_spatial(params, pair, cache, ALPHA, cfg_off, mesh)  # noqa: E731
+        if cfg_off not in offs:  # the first call at these shapes chooses their convs
+            reset_counts()
+            off = run_off()
+            torch.cuda.synchronize()
+            offs[cfg_off] = (off, read_counts(), peak_bytes(run_off))
+        off, counts_off, peak_off = offs[cfg_off]
+        reset_counts()
+        with conv_weight_shapes() as spatial:
+            on = run_on()
+        torch.cuda.synchronize()
+        counts = read_counts()
+        want = {"ns_sqrtm": 5 if cfg.method == "newton_schulz_pallas" else 0, "centered_gram": 5 * n}
+        check(counts == counts_off == {**NO_LAUNCHES, **want},
+              f"mesh_spatial_pack2 {route}: launches {counts}, pack2 off {counts_off}")
+        with conv_weight_shapes() as unsharded:
+            cascade.stylize(params, small, cache, ALPHA, cfg)
+        plan = mesh_lib.pack2_plan(cfg, len(pair))
+        check(spatial == Counter({k: n * v for k, v in unsharded.items()}),
+              f"mesh_spatial_pack2 {route}: conv shapes {dict(spatial)}, unsharded {dict(unsharded)}")
+        check(any(6 in shape[:2] for shape in spatial) and any(plan.encoder),
+              f"mesh_spatial_pack2 {route}: nothing packed {plan}")
+        g = gap(on, off)
+        check(tuple(on.shape) == tuple(pair.shape) and bool(torch.isfinite(on).all())
+              and g["q99"] <= REWRITE_Q99_LIMIT,
+              f"mesh_spatial_pack2 {route}: against pack2 off {g}")
+        peak_on = peak_bytes(lambda: check(torch.equal(run_on(), on),
+                                           f"mesh_spatial_pack2 {route}: two calls differ"))
+        retries = torch.cuda.memory_stats().get("num_alloc_retries", 0)
+        ms_off, ms_on = in_turns(run_off, run_on, runs=1)
+        rows[route] = {"plan": dataclasses.asdict(plan), "launches": counts, "vs_off": g,
+                       "deterministic": True, "conv_shapes_as_unsharded": True,
+                       "ms": ms_on, "ms_off": ms_off, "card_peak_bytes": peak_on,
+                       "card_peak_bytes_off": peak_off,
+                       "alloc_retries_in_turns":
+                           torch.cuda.memory_stats().get("num_alloc_retries", 0) - retries}
+        del on, cache
+    return {"batch": len(pair), "routes": rows}
 
 
 def phase_ring_2048(params, style):

@@ -129,3 +129,32 @@ def test_dp_pack2_keeps_pairs_per_shard(card, params):
     mesh = tmesh.create_mesh(4, device="cuda:0")
     assert torch.equal(tmesh.stylize_sharded(params, content, cache, 0.6, cfg, mesh),
                        tmesh.stylize_sharded(params, content, cache, 0.6, off, mesh))
+
+
+def test_spatial_pack2_on_four_shards_is_the_cpu_call(card, params):
+    """pack2 on an even batch in ``stylize_spatial``: two 64-px images,
+    relu2_1 → relu1_1 (a packed junction, then the packed relu1_1 tail),
+    on four shards of cuda:0 against the same call on four CPU shards:
+    the kernels' bar against the plain cascade, max ≤ 1e-3
+    (``tests/test_torch_cuda.py``); a Gram kernel launch per level and
+    shard, a Newton–Schulz kernel launch per level."""
+    from wct_tpu_torch.ops import sqrtm
+
+    rng = np.random.default_rng(5)
+    content = rng.random((2, 64, 64, 3), np.float32)
+    style = rng.random((64, 64, 3), np.float32)
+    cfg = cascade.CascadeConfig(relu_targets=("relu2_1", "relu1_1"), method="newton_schulz_pallas",
+                                pack2_junction=True)
+    outs = {}
+    for dev in ("cuda:0", "cpu"):
+        p = params if dev != "cpu" else tck.params_from_numpy(tck.load_pytree(BUNDLE), "cpu")
+        cache = cascade.precompute_style(p["encoder"], style, cfg)
+        mesh = tmesh.create_mesh(4, axis_name="sp", device=dev)
+        grams, roots = gram.centered_gram_cuda.launches, sqrtm.ns_sqrtm_cuda.launches
+        outs[dev] = tmesh.stylize_spatial(p, content, cache, 0.6, cfg, mesh)
+        if dev != "cpu":
+            torch.cuda.synchronize()
+            assert gram.centered_gram_cuda.launches - grams == 2 * 4
+            assert sqrtm.ns_sqrtm_cuda.launches - roots == 2
+    assert outs["cuda:0"].shape == (2, 64, 64, 3)
+    assert float((outs["cuda:0"].cpu() - outs["cpu"]).abs().max()) <= 1e-3

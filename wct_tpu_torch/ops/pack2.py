@@ -55,6 +55,14 @@ def _dup(b: torch.Tensor) -> torch.Tensor:
     return torch.cat([b, b])
 
 
+def pair_weights(w: torch.Tensor, b: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """A conv's weights for image pairs: ``w [co, ci, k, k]``, ``b [co]`` →
+    the block-diagonal ``[2co, 2ci, k, k]`` and ``[2co]``. A caller that
+    runs the conv many times (``parallel.stylize_spatial``, per shard and
+    level) makes them once."""
+    return _blockdiag(w), _dup(b)
+
+
 def pack(x: torch.Tensor) -> torch.Tensor:
     """``[B, C, H, W]`` → ``[B/2, 2C, H, W]``; image i pairs with image i + B/2."""
     b = x.shape[0]
@@ -72,7 +80,7 @@ def _conv(ring: bool):
 
 
 def _packed_conv(conv, x, w, b):
-    return conv(x, _blockdiag(w), _dup(b))
+    return conv(x, *pair_weights(w, b))
 
 
 def _pre(enc_w0, enc_b0, enc_w11, enc_b11, compose_pre: bool):
@@ -147,7 +155,7 @@ def head_pack2(
     return unpack(maxpool2_nchw(torch.relu(_packed_conv(conv, e1, enc_w12, enc_b12))))
 
 
-def _images_view(xp: torch.Tensor) -> torch.Tensor:
+def images_view(xp: torch.Tensor) -> torch.Tensor:
     """Packed ``[B/2, 2C, H, W]`` → channel-major ``[B, C, N]`` of the same
     memory, pair j's halves at entries 2j and 2j + 1."""
     b2, c2 = xp.shape[:2]
@@ -161,7 +169,7 @@ def _pair_gram(xp: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     pair j's ``[2C, 2C]`` Gram (``wct_tpu/ops/pack2.py:139-160``); the cross
     blocks it discards are not computed. One ``centered_gram_cn`` over the
     images' view (module docstring)."""
-    cov, mean = wct_ops._gram_cn(_images_view(xp))
+    cov, mean = wct_ops._gram_cn(images_view(xp))
     b2, c2 = xp.shape[:2]
     return cov.reshape(b2, 2, c2 // 2, c2 // 2), mean.reshape(b2, c2)
 
@@ -195,7 +203,7 @@ def tail_pack2(
     reference's ``[128, 128]`` block-diagonal transform and its zero
     blocks are never formed: the same products, without the zeros.
     """
-    view = _images_view(e1p)
+    view = images_view(e1p)
     if transform == "adain":
         mu, var = gram.moments_cn(view)
         scale, bias = adain_ops.adain_affine_from_moments(mu, var, adain_stats, alpha)

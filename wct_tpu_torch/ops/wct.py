@@ -53,14 +53,6 @@ Method = Literal[
 # (wct_tpu/ops/wct.py:59-66).
 _AUTO_EIGH_MAX_C = 64
 
-# Where the one part that is not ported yet is carried in ROADMAP.md.
-ITEM_PACK2_SPATIAL = "ROADMAP.md queue 1 item 11h (pack2 in stylize_spatial)"
-
-
-def not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to wct_tpu_torch yet: {item}")
-
-
 @dataclasses.dataclass(frozen=True)
 class StyleStats:
     """Cacheable per-level style statistics.

@@ -37,6 +37,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import dataclasses
+import math
 import time
 
 import torch
@@ -47,6 +48,7 @@ from wct_tpu_torch.models import decoder as dec_lib
 from wct_tpu_torch.models import vgg
 from wct_tpu_torch.ops import adain as adain_ops
 from wct_tpu_torch.ops import gram
+from wct_tpu_torch.ops import pack2
 from wct_tpu_torch.ops import wct as wct_ops
 from wct_tpu_torch.ops.convs import (
     compose_1x1_into_conv,
@@ -413,25 +415,54 @@ def _halo_conv(mesh: Mesh, xs: list, wb: list, relu: bool, ring: bool = False,
     return each(mesh, conv, xs, tops, bottoms)
 
 
-def _encode(mesh: Mesh, enc: list, xs: list, target: str, compose_pre: bool,
-            ring: bool = False) -> list:
+def _per_device(mesh: Mesh, make) -> list:
+    """``make(dev)`` once for each distinct device of the mesh, listed per entry."""
+    made = {}
+    for d in mesh.devices:
+        if d not in made:
+            made[d] = make(d)
+    return [made[d] for d in mesh.devices]
+
+
+def _tier_weights(enc: dict, compose_pre: bool, paired: bool) -> dict:
+    """The encoder's full-resolution convs on one device, name → ``(w, b)``:
+    conv1_1 with the 1×1 conv0 composed in (``compose_pre``; conv0 is then
+    absent), each as its block-diagonal pair (``pack2.pair_weights``) when
+    ``paired``."""
+    wb = {n: (enc[n]["w"], enc[n]["b"]) for n in ("conv0", "conv1_1", "conv1_2")}
+    if compose_pre:
+        wb["conv1_1"] = compose_1x1_into_conv(*wb.pop("conv0"), *wb["conv1_1"])
+    return {n: pack2.pair_weights(*v) for n, v in wb.items()} if paired else wb
+
+
+def _pack_each(mesh: Mesh, xs: list) -> list:
+    return each(mesh, lambda i, x: pack2.pack(x), xs)
+
+
+def _unpack_each(mesh: Mesh, xs: list) -> list:
+    return each(mesh, lambda i, x: pack2.unpack(x), xs)
+
+
+def _encode(mesh: Mesh, enc: list, tier: list, xs: list, target: str, ring: bool = False,
+            paired: bool = False) -> list:
     """``vgg.encode_multi_nchw(..., (target,))`` on a height-split map:
-    the same layer list, shard by shard."""
-    composed = {}  # device → conv0 folded into conv1_1, once per device
-    for e in enc if compose_pre else ():
-        dev = e["conv0"]["w"].device
-        if dev not in composed:
-            composed[dev] = compose_1x1_into_conv(
-                e["conv0"]["w"], e["conv0"]["b"], e["conv1_1"]["w"], e["conv1_1"]["b"])
+    the same layer list, shard by shard. ``tier`` holds each entry's
+    full-resolution convs (``_tier_weights``, made once per device and
+    call). ``paired``: those are the block-diagonal pairs and ``xs`` comes
+    packed (``pack2.pack``), so conv0, conv1_1 and, above relu1_1, conv1_2
+    and pool1 run on image pairs, and the map is unpacked after pool1;
+    relu1_1 features are returned packed."""
     for spec in vgg.layers_to(target):
         if spec[0] == "pool":
             xs = each(mesh, lambda i, x: maxpool2_nchw(x), xs)
+            if paired:
+                xs, paired = _unpack_each(mesh, xs), False
             continue
         name = spec[1]
-        if composed and name == "conv0":
+        if name in tier[0]:
+            wb = [t[name] for t in tier]
+        elif name == "conv0":  # composed into conv1_1
             continue
-        if composed and name == "conv1_1":
-            wb = [composed[e["conv0"]["w"].device] for e in enc]
         else:
             wb = [(e[name]["w"], e[name]["b"]) for e in enc]
         xs = _halo_conv(mesh, xs, wb, relu=spec[0] == "conv", ring=ring)
@@ -439,17 +470,35 @@ def _encode(mesh: Mesh, enc: list, xs: list, target: str, compose_pre: bool,
 
 
 def _decode(mesh: Mesh, dec: list, xs: list, target: str, ring: bool = False,
-            start: int = 0) -> list:
-    """``decoder.decode_nchw`` on a height-split map, from layer ``start``."""
+            start: int = 0, pairs: list | None = None) -> list:
+    """``decoder.decode_nchw`` on a height-split map, from layer ``start``.
+    ``pairs``: each entry's block-diagonal pairs of the last tier's two
+    convs (``_decoder_pairs``); the map is packed before the last
+    upsample, that tier runs on image pairs, and the RGB comes out packed,
+    as ``pack2.junction_pack2`` runs it."""
     layers = dec_lib.decoder_layers(target)
     for li in range(start, len(layers)):
         spec = layers[li]
+        if pairs is not None and li == len(layers) - 3:
+            xs = _pack_each(mesh, xs)
         if spec[0] == "upsample":
             xs = each(mesh, lambda i, x: upsample_nearest2_nchw(x), xs)
             continue
-        wb = [(d[spec[1]]["w"], d[spec[1]]["b"]) for d in dec]
+        if pairs is not None and spec[1] in pairs[0]:
+            wb = [p[spec[1]] for p in pairs]
+        else:
+            wb = [(d[spec[1]]["w"], d[spec[1]]["b"]) for d in dec]
         xs = _halo_conv(mesh, xs, wb, relu=li != len(layers) - 1, ring=ring)
     return xs
+
+
+def _decoder_pairs(decoders: dict, level: str) -> dict:
+    """The ``level`` decoder's convs that run on image pairs, name → the
+    block-diagonal ``(w, b)``: the last tier's two (64→64, 64→3), or
+    relu1_1's one 64→3."""
+    convs = [s[1] for s in dec_lib.decoder_layers(level)[-2:] if s[0] == "conv"]
+    return {n: pack2.pair_weights(decoders[level][n]["w"], decoders[level][n]["b"])
+            for n in convs}
 
 
 def _decode_folded(mesh: Mesh, dec: list, feats: list, target: str, affine) -> list:
@@ -482,12 +531,17 @@ def combine_moments(sums, means, counts):
     return total, mean, n
 
 
+def _columns(f: torch.Tensor) -> int:
+    return math.prod(f.shape[2:])
+
+
 def sharded_covariance(mesh: Mesh, feats: list, groups: int = 1):
     """The channel covariances of a map split by height (``feats``: NCHW
-    shards, one per entry): ``gram.centered_gram_cn`` per shard on its
-    ``[B·G, C/G, N_s]`` view (as ``ops.wct._grouped_gram_cn``), combined on
-    the first device by ``combine_moments``: ``(cov [B·G, C/G, C/G],
-    mean [B·G, C/G])``, N − 1 normalised as ``ops.wct._gram_cn``."""
+    shards, one per entry, or their channel-major ``[B, C, N_s]`` views):
+    ``gram.centered_gram_cn`` per shard on its ``[B·G, C/G, N_s]`` view (as
+    ``ops.wct._grouped_gram_cn``), combined on the first device by
+    ``combine_moments``: ``(cov [B·G, C/G, C/G], mean [B·G, C/G])``, N − 1
+    normalised as ``ops.wct._gram_cn``."""
 
     def one(i, f):
         b, c = f.shape[:2]
@@ -497,16 +551,17 @@ def sharded_covariance(mesh: Mesh, feats: list, groups: int = 1):
     dev = mesh.devices[0]
     total, mean, n = combine_moments([g.to(dev) for g, _ in parts],
                                      [m.to(dev) for _, m in parts],
-                                     [f.shape[2] * f.shape[3] for f in feats])
+                                     [_columns(f) for f in feats])
     return total / (n - 1), mean
 
 
 def _shard_moments(mesh: Mesh, feats: list):
     """AdaIN's content moments ``(mean, population var)`` ``[B, C]`` of a
-    height-split map: ``gram.moments_cn`` per shard, combined."""
+    height-split map (or its ``[B, C, N_s]`` views): ``gram.moments_cn``
+    per shard, combined."""
     parts = each(mesh, lambda i, f: gram.moments_cn(f.flatten(2)), feats)
     dev = mesh.devices[0]
-    counts = [f.shape[2] * f.shape[3] for f in feats]
+    counts = [_columns(f) for f in feats]
     total, mean, n = combine_moments([(v * c).to(dev) for (_, v), c in zip(parts, counts)],
                                      [m.to(dev) for m, _ in parts], counts)
     return mean, total / n
@@ -517,10 +572,11 @@ def _split_rows(mesh: Mesh, x: torch.Tensor, rows: list[int]) -> list:
 
 
 def _transform(mesh: Mesh, feats: list, level: str, caches: list, alpha, cfg) -> list:
-    """The level's transform on a height-split map, from statistics
-    combined over the shards: the WCT affine (dense or in blocks) or
-    AdaIN's moments, computed once and applied per shard; at relu5_1 with
-    ``swap5``, the whole whitened map on the first device."""
+    """The level's transform on a height-split map (NCHW shards or their
+    ``[B, C, N_s]`` views), from statistics combined over the shards: the
+    WCT affine (dense or in blocks) or AdaIN's moments, computed once and
+    applied per shard; at relu5_1 with ``swap5``, the whole whitened map
+    on the first device."""
     kw = cascade_lib.wct_kw(cfg, level)
     style = caches[0][level]
     if cfg.swap5 and level == "relu5_1":
@@ -541,6 +597,22 @@ def _transform(mesh: Mesh, feats: list, level: str, caches: list, alpha, cfg) ->
                 feats, ms, bs)
 
 
+def _tail_pack2(mesh: Mesh, feats: list, caches: list, alpha, cfg, pairs: list) -> list:
+    """``pack2.tail_pack2`` on packed relu1_1 shards ``[B/2, 128, h_s, W]``:
+    the statistics of each shard's images view (``pack2.images_view``,
+    ``[B, 64, N_s]``, pair j's halves at entries 2j and 2j + 1) combined
+    over the shards, the transform applied per shard on the same view, so
+    the pair Gram's cross blocks are never formed, then the 64→3 conv as
+    the packed 128→6 conv (``pairs``) over the halo rows. Returns the
+    unpacked RGB shards, unclipped."""
+    views = each(mesh, lambda i, f: pack2.images_view(f), feats)
+    moved = _transform(mesh, views, "relu1_1", caches, alpha, cfg)
+    ys = each(mesh, lambda i, v, f: v.reshape(f.shape), moved, feats)
+    name = dec_lib.decoder_layers("relu1_1")[-1][1]
+    return _unpack_each(mesh, _halo_conv(mesh, ys, [p[name] for p in pairs], relu=False,
+                                         ring=cfg.ring_conv))
+
+
 def _affine(mesh: Mesh, feats: list, level: str, caches: list, alpha, cfg):
     """The level's per-image affine for the fold, from statistics combined
     over the shards, on the first device: AdaIN's diagonal ``(scale,
@@ -552,6 +624,45 @@ def _affine(mesh: Mesh, feats: list, level: str, caches: list, alpha, cfg):
     blended, bias = wct_ops.wct_affine_from_cov(
         cov, mean, style.stats, alpha, **cascade_lib.wct_kw(cfg, level))
     return wct_ops.dense_affine(blended), bias
+
+
+@dataclasses.dataclass(frozen=True)
+class Pack2Plan:
+    """Which layers of ``stylize_spatial``'s walk run on image pairs, one
+    entry per level of ``cfg.relu_targets`` (the same in every pass):
+    ``encoder``, its full-resolution tier (conv0, conv1_1 and, above
+    relu1_1, conv1_2 and pool1); ``decoder``, its last tier (the last
+    upsample and the two convs after it), whose packed RGB the next
+    level's encoder takes as it is; ``tail``, relu1_1's statistics on the
+    packed map's images view and its 64→3 conv as the packed 128→6 conv."""
+
+    encoder: tuple[bool, ...]
+    decoder: tuple[bool, ...]
+    tail: tuple[bool, ...]
+
+
+def pack2_plan(cfg: cascade_lib.CascadeConfig, batch: int) -> Pack2Plan:
+    """The layers the unsharded cascade runs on image pairs for ``cfg`` and
+    a batch of ``batch`` (``models/cascade.py::stylize_fn``'s gates, after
+    ``wct_tpu/models/cascade.py:477-566``), for a walk that re-encodes
+    from RGB at every level: a packed junction there is the decoder's last
+    tier and the next level's encoder tier, the layers
+    ``pack2.junction_pack2`` runs, in its order."""
+    pack2_all = cfg.pack2_junction and batch % 2 == 0
+    pack2_ok = pack2_all and not cfg.pack2_tail_only
+    pack_tail_ok = (pack2_all and cfg.wct_groups == 1 and not cfg.pack2_junction_only
+                    and len(dec_lib.decoder_layers("relu1_1")) == 1)
+    targets = cfg.relu_targets
+    encoder, decoder, tail = [], [], []
+    junction = False  # the previous level's decoder ended in a packed junction
+    # (CascadeConfig refuses pack2 with fold_transform, so no level folds.)
+    for li, level in enumerate(targets):
+        tail.append(level == "relu1_1" and pack_tail_ok)
+        encoder.append(tail[-1] or junction or (pack2_ok and level != "relu1_1"))
+        junction = (pack2_ok and not tail[-1] and li + 1 < len(targets)
+                    and dec_lib.has_standard_tail(level))
+        decoder.append(junction)
+    return Pack2Plan(tuple(encoder), tuple(decoder), tuple(tail))
 
 
 @torch.no_grad()
@@ -571,7 +682,9 @@ def encode_spatial(
         raise ValueError(f"height {x.shape[2]} is not a multiple of {target}'s pool factor {block}")
     xs = _split_rows(mesh, x, _height_rows(x.shape[2], len(devs), block))
     enc = [replicate(mesh, encoder_params, d) for d in devs]
-    feats = _encode(mesh, enc, xs, target, compose_pre)
+    tier = _per_device(mesh, lambda d: _tier_weights(replicate(mesh, encoder_params, d),
+                                                     compose_pre, False))
+    feats = _encode(mesh, enc, tier, xs, target)
     return to_nhwc(torch.cat([f.to(devs[0]) for f in feats], dim=2))
 
 
@@ -617,10 +730,14 @@ def stylize_spatial(
       reflect pad gives way to the ring conv's zero-padded bulk and
       column strips; a shard holding the image's top or bottom edge
       takes the ring's row strip there (``convs.conv2d_ring_rows_nchw``).
-    - ``pack2_junction``: the reference's gate reads the batch, so an odd
-      batch runs unpacked, the same call as without the flag. The halo
-      convs here are this function's own, not the cascade's, so an even
-      batch, which the reference packs, raises, naming its ROADMAP item.
+    - ``pack2_junction`` and its scopes: the layers the unsharded cascade
+      runs on image pairs (``pack2_plan``, the reference's gates: an odd
+      batch packs nothing) run so here, on each shard's rows with the
+      block-diagonal weights, made once per device and call: the
+      encoder's full-resolution tier, the decoder's last tier, whose
+      packed RGB (clipped packed) goes on into the next level's encoder,
+      and the relu1_1 tail, whose statistics come from each shard's
+      images view (``_tail_pack2``).
     """
     check_axis(mesh, axis_name)
     cfg = _unfused(cfg)
@@ -629,25 +746,39 @@ def stylize_spatial(
         content = gather(content)
     devs = mesh.devices
     x, h, w = cascade_lib.padded_input(content, cfg, devs[0])
-    if cfg.pack2_junction and x.shape[0] % 2 == 0:
-        raise wct_ops.not_ported("pack2_junction on an even batch in stylize_spatial",
-                                 wct_ops.ITEM_PACK2_SPATIAL)
+    plan = pack2_plan(cfg, x.shape[0])
     block = max(vgg.TARGET_SCALE[t] for t in cfg.relu_targets)
     xs = _split_rows(mesh, x, _height_rows(x.shape[2], len(devs), block))
     enc = [replicate(mesh, params["encoder"], d) for d in devs]
     decs = [replicate(mesh, params["decoders"], d) for d in devs]
     caches = [replicate(mesh, style_cache, d) for d in devs]
+    tiers = {paired: _per_device(mesh, lambda d, p=paired: _tier_weights(
+        replicate(mesh, params["encoder"], d), cfg.compose_conv0, p)) for paired in set(plan.encoder)}
+    pairs = {level: _per_device(mesh, lambda d, lv=level: _decoder_pairs(
+        replicate(mesh, params["decoders"], d), lv))
+        for li, level in enumerate(cfg.relu_targets) if plan.decoder[li] or plan.tail[li]}
+    packed = False  # whether xs holds packed RGB, from a packed decoder tier
     for _ in range(cfg.passes):
-        for level in cfg.relu_targets:
-            feats = _encode(mesh, enc, xs, level, cfg.compose_conv0, cfg.ring_conv)
+        for li, level in enumerate(cfg.relu_targets):
+            if plan.encoder[li] and not packed:
+                xs = _pack_each(mesh, xs)
+            feats = _encode(mesh, enc, tiers[plan.encoder[li]], xs, level, cfg.ring_conv,
+                            paired=plan.encoder[li])
             dec = [d[level] for d in decs]
-            if (cfg.fold_transform and vgg.TARGET_CHANNELS[level] <= 128
-                    and not (cfg.swap5 and level == "relu5_1")):
-                xs = _decode_folded(mesh, dec, feats, level,
-                                    _affine(mesh, feats, level, caches, alpha, cfg))
+            if plan.tail[li]:
+                xs = _tail_pack2(mesh, feats, caches, alpha, cfg, pairs[level])
             else:
-                feats = _transform(mesh, feats, level, caches, alpha, cfg)
-                xs = _decode(mesh, dec, feats, level, cfg.ring_conv)
+                if plan.encoder[li] and level == "relu1_1":
+                    feats = _unpack_each(mesh, feats)
+                if (cfg.fold_transform and vgg.TARGET_CHANNELS[level] <= 128
+                        and not (cfg.swap5 and level == "relu5_1")):
+                    xs = _decode_folded(mesh, dec, feats, level,
+                                        _affine(mesh, feats, level, caches, alpha, cfg))
+                else:
+                    feats = _transform(mesh, feats, level, caches, alpha, cfg)
+                    xs = _decode(mesh, dec, feats, level, cfg.ring_conv,
+                                 pairs=pairs[level] if plan.decoder[li] else None)
+            packed = plan.decoder[li]
             if cfg.clip_between_levels:
                 xs = each(mesh, lambda i, y: y.clamp(0.0, 1.0), xs)
     out = torch.cat([y.to(devs[0]) for y in xs], dim=2)
