@@ -41,8 +41,6 @@ def test_device_sync_handles_nested_trees_and_none():
     profiling.device_sync(None)
     profiling.device_sync({"x": torch.ones(2, 2), "y": None, "z": [torch.zeros(3), (None,)]})
     profiling.device_sync([])
-    profiling.sync_one_element({"x": [torch.ones(2, 2)], "y": None})
-    profiling.sync_one_element([torch.ones(0), None])
 
 
 def test_trace_on_cpu_writes_a_chrome_trace(tmp_path):
@@ -74,16 +72,3 @@ def test_trace_defaults_to_the_card_and_raises_without_one(tmp_path):
         with profiling.trace(str(tmp_path)):
             pass
 
-
-def test_bench_helpers():
-    calls = []
-
-    def fn(x):
-        calls.append(tuple(x.shape))
-        return x + 1
-
-    xs = [torch.ones(2, 4) for _ in range(3)]
-    assert profiling.pipelined_fps(fn, xs, n_rounds=2) > 0
-    assert profiling.latency_seconds(fn, xs[0], n=2) >= 0
-    assert profiling.timeit_min(fn, xs[0], iters=2, repeats=2) >= 0
-    assert calls and all(c == (2, 4) for c in calls)

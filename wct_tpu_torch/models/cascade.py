@@ -55,8 +55,11 @@ from wct_tpu_torch.utils.device import (
     set_numerics,
     values_on,
 )
+from wct_tpu_torch.utils.profiling import span
 
 DEFAULT_TARGETS = ("relu5_1", "relu4_1", "relu3_1", "relu2_1", "relu1_1")
+# Each level's span, named once so that a span costs no string per call.
+_LEVEL_SPANS = {t: f"wct.level.{t}" for t in vgg.RELU_TARGETS}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -260,6 +263,11 @@ def precompute_style(
     level takes its whitening and coloring kernels from one
     decomposition (``wct_tpu/models/cascade.py:354-372``).
     """
+    with span("wct.precompute_style"):
+        return _precompute_style(encoder_params, style_img, cfg)
+
+
+def _precompute_style(encoder_params: dict, style_img, cfg: CascadeConfig) -> StyleCache:
     set_numerics(cfg.dtype)
     x = _as_images(style_img, encoder_params["conv1_1"]["w"].device)
     feats = vgg.encode_multi_nchw(
@@ -393,7 +401,18 @@ def stylize_fn(
     reflect) and cropped back at the end, so the output has the
     input's size. Under ``compute_dtype='bfloat16'`` the image is cast
     to bf16 on entry and the clipped result back to f32.
+
+    The call runs in the span ``wct.stylize`` and each level in
+    ``wct.level.<relu>``, its stages in ``wct.encode``,
+    ``wct.transform``, ``wct.decode`` and ``wct.junction``
+    (``utils.profiling.span``; in the packed relu1_1 tail the transform's
+    span lies inside the decode's).
     """
+    with span("wct.stylize"):
+        return _stylize(params, content, style_cache, alpha, cfg)
+
+
+def _stylize(params: dict, content, style_cache: StyleCache, alpha, cfg: CascadeConfig):
     set_numerics(cfg.dtype)
     x, h, w = padded_input(content, cfg, params_device(params))
     # Fused-junction eligibility is a static rule on the (padded) shape;
@@ -418,98 +437,113 @@ def stylize_fn(
     ring = cfg.ring_conv
     for _ in range(cfg.passes):
         for li, level in enumerate(cfg.relu_targets):
-            style = style_cache[level]
-            dec_p = params["decoders"][level]
-            layers = dec_lib.decoder_layers(level)
-            if (level == "relu1_1" and pack_tail_ok and state_kind in ("img", "e1p")
-                    and single_conv_tail):
-                if state_kind == "img":
-                    x = pack2.head_pack2_shallow(x, *head_weights[:4], ring=ring,
-                                                 compose_pre=cfg.compose_conv0)
-                conv = dec_p[layers[0][1]]
-                x = pack2.tail_pack2(
-                    x, style.stats, alpha, conv["w"], conv["b"], transform=cfg.transform,
-                    adain_stats=style.adain, method=cfg.method, soft_trunc=cfg.soft_trunc,
-                    ns_iters=cfg.ns_iters_for(level), rel_trunc=cfg.rel_trunc, ring=ring,
-                )
-                if cfg.clip_between_levels:
-                    x = x.clamp(0.0, 1.0)
-                state_kind = "img"
-                continue
-            if state_kind == "img":
-                if (junction_ok or pack2_ok) and level != "relu1_1":
-                    if pack2_ok:
-                        p1 = pack2.head_pack2(x, *head_weights, ring=ring,
-                                              compose_pre=cfg.compose_conv0)
-                    else:
-                        p1 = junction_ops.encoder_head_nchw(x, *head_weights)
-                    feats = vgg.encode_from_pool1_nchw(enc, p1, level, ring)
+            with span(_LEVEL_SPANS[level]):
+                style = style_cache[level]
+                dec_p = params["decoders"][level]
+                layers = dec_lib.decoder_layers(level)
+                if (level == "relu1_1" and pack_tail_ok and state_kind in ("img", "e1p")
+                        and single_conv_tail):
+                    if state_kind == "img":
+                        with span("wct.encode"):
+                            x = pack2.head_pack2_shallow(x, *head_weights[:4], ring=ring,
+                                                         compose_pre=cfg.compose_conv0)
+                    conv = dec_p[layers[0][1]]
+                    with span("wct.decode"):
+                        x = pack2.tail_pack2(
+                            x, style.stats, alpha, conv["w"], conv["b"], transform=cfg.transform,
+                            adain_stats=style.adain, method=cfg.method, soft_trunc=cfg.soft_trunc,
+                            ns_iters=cfg.ns_iters_for(level), rel_trunc=cfg.rel_trunc, ring=ring,
+                        )
+                        if cfg.clip_between_levels:
+                            x = x.clamp(0.0, 1.0)
+                    state_kind = "img"
+                    continue
+                if state_kind == "e1":  # the junction already produced relu1_1 features
+                    feats = x
                 else:
-                    feats = vgg.encode_multi_nchw(
-                        enc, x, (level,), compose_pre=cfg.compose_conv0, ring=ring
-                    )[level]
-            elif state_kind == "pooled":
-                feats = vgg.encode_from_pool1_nchw(enc, x, level, ring)
-            elif state_kind == "e1p":
-                feats = pack2.unpack(x)
-            else:  # 'e1': the junction already produced relu1_1 features
-                feats = x
-            nxt = cfg.relu_targets[li + 1] if li + 1 < len(cfg.relu_targets) else None
-            # As the reference, fold only at C ≤ 128 (relu2_1, relu1_1),
-            # where the O(9·C³) weight fold is small against the map it
-            # saves; the swap is not affine.
-            if (
-                cfg.fold_transform and vgg.TARGET_CHANNELS[level] <= 128
-                and not (cfg.swap5 and level == "relu5_1")
-            ):
-                m, bias = _level_affine(feats, level, style, alpha, cfg)
-                x = dec_lib.decode_folded_nchw(dec_p, feats, level, m, bias)
-                if cfg.clip_between_levels:
-                    x = x.clamp(0.0, 1.0)
-                state_kind = "img"
-                continue
-            if junction_ok and len(layers) == 1 and not (cfg.swap5 and level == "relu5_1"):
-                # Single-conv decoder (relu1_1): fold each image's WCT or
-                # AdaIN affine into the conv; the apply and the 64→3
-                # conv collapse into the per-image-weight tail kernel.
-                m, bias = _level_affine(feats, level, style, alpha, cfg)
-                conv = dec_p[layers[0][1]]
-                wf, bf = dec_lib.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
-                x = junction_ops.decoder_tail_nchw(
-                    feats, wf, bf, clip=cfg.clip_between_levels
-                )
-                state_kind = "img"
-                continue
-            transformed = _transform_level(feats, level, style, alpha, cfg)
-            if pack2_ok and nxt is not None and dec_lib.has_standard_tail(level):
-                d = dec_lib.decode_partial_nchw(dec_p, transformed, level, ring)
-                deep = nxt != "relu1_1"
-                # Keep relu1_1 packed where the packed tail takes it next.
-                keep_packed = not deep and pack_tail_ok and single_conv_tail
-                x = pack2.junction_pack2(
-                    d, *dec_lib.tail_weights(dec_p, level), *head_weights, deep=deep,
-                    clip=cfg.clip_between_levels, unpack_out=not keep_packed, ring=ring,
-                    compose_pre=cfg.compose_conv0,
-                )
-                state_kind = "pooled" if deep else ("e1p" if keep_packed else "e1")
-            # The 2→1 boundary keeps the unfused decode + encode, as the
-            # reference does (its shallow kernel variant does not
-            # compile for the TPU), so both compute the same thing.
-            elif (
-                junction_ok and nxt is not None and nxt != "relu1_1"
-                and dec_lib.has_standard_tail(level)
-            ):
-                d = dec_lib.decode_partial_nchw(dec_p, transformed, level, ring)
-                x = junction_ops.junction_nchw(
-                    d, *dec_lib.tail_weights(dec_p, level), *head_weights,
-                    deep=True, clip=cfg.clip_between_levels,
-                )
-                state_kind = "pooled"
-            else:
-                x = dec_lib.decode_nchw(dec_p, transformed, level, ring)
-                if cfg.clip_between_levels:
-                    x = x.clamp(0.0, 1.0)
-                state_kind = "img"
+                    with span("wct.encode"):
+                        if state_kind == "img":
+                            if (junction_ok or pack2_ok) and level != "relu1_1":
+                                if pack2_ok:
+                                    p1 = pack2.head_pack2(x, *head_weights, ring=ring,
+                                                          compose_pre=cfg.compose_conv0)
+                                else:
+                                    p1 = junction_ops.encoder_head_nchw(x, *head_weights)
+                                feats = vgg.encode_from_pool1_nchw(enc, p1, level, ring)
+                            else:
+                                feats = vgg.encode_multi_nchw(
+                                    enc, x, (level,), compose_pre=cfg.compose_conv0, ring=ring
+                                )[level]
+                        elif state_kind == "pooled":
+                            feats = vgg.encode_from_pool1_nchw(enc, x, level, ring)
+                        else:  # 'e1p'
+                            feats = pack2.unpack(x)
+                nxt = cfg.relu_targets[li + 1] if li + 1 < len(cfg.relu_targets) else None
+                # As the reference, fold only at C ≤ 128 (relu2_1, relu1_1),
+                # where the O(9·C³) weight fold is small against the map it
+                # saves; the swap is not affine.
+                if (
+                    cfg.fold_transform and vgg.TARGET_CHANNELS[level] <= 128
+                    and not (cfg.swap5 and level == "relu5_1")
+                ):
+                    with span("wct.transform"):
+                        m, bias = _level_affine(feats, level, style, alpha, cfg)
+                    with span("wct.decode"):
+                        x = dec_lib.decode_folded_nchw(dec_p, feats, level, m, bias)
+                        if cfg.clip_between_levels:
+                            x = x.clamp(0.0, 1.0)
+                    state_kind = "img"
+                    continue
+                if junction_ok and len(layers) == 1 and not (cfg.swap5 and level == "relu5_1"):
+                    # Single-conv decoder (relu1_1): fold each image's WCT or
+                    # AdaIN affine into the conv; the apply and the 64→3
+                    # conv collapse into the per-image-weight tail kernel.
+                    with span("wct.transform"):
+                        m, bias = _level_affine(feats, level, style, alpha, cfg)
+                    conv = dec_p[layers[0][1]]
+                    with span("wct.decode"):
+                        wf, bf = dec_lib.fold_affine_into_conv(m, bias, conv["w"], conv["b"])
+                        x = junction_ops.decoder_tail_nchw(
+                            feats, wf, bf, clip=cfg.clip_between_levels
+                        )
+                    state_kind = "img"
+                    continue
+                with span("wct.transform"):
+                    transformed = _transform_level(feats, level, style, alpha, cfg)
+                if pack2_ok and nxt is not None and dec_lib.has_standard_tail(level):
+                    with span("wct.decode"):
+                        d = dec_lib.decode_partial_nchw(dec_p, transformed, level, ring)
+                    deep = nxt != "relu1_1"
+                    # Keep relu1_1 packed where the packed tail takes it next.
+                    keep_packed = not deep and pack_tail_ok and single_conv_tail
+                    with span("wct.junction"):
+                        x = pack2.junction_pack2(
+                            d, *dec_lib.tail_weights(dec_p, level), *head_weights, deep=deep,
+                            clip=cfg.clip_between_levels, unpack_out=not keep_packed, ring=ring,
+                            compose_pre=cfg.compose_conv0,
+                        )
+                    state_kind = "pooled" if deep else ("e1p" if keep_packed else "e1")
+                # The 2→1 boundary keeps the unfused decode + encode, as the
+                # reference does (its shallow kernel variant does not
+                # compile for the TPU), so both compute the same thing.
+                elif (
+                    junction_ok and nxt is not None and nxt != "relu1_1"
+                    and dec_lib.has_standard_tail(level)
+                ):
+                    with span("wct.decode"):
+                        d = dec_lib.decode_partial_nchw(dec_p, transformed, level, ring)
+                    with span("wct.junction"):
+                        x = junction_ops.junction_nchw(
+                            d, *dec_lib.tail_weights(dec_p, level), *head_weights,
+                            deep=True, clip=cfg.clip_between_levels,
+                        )
+                    state_kind = "pooled"
+                else:
+                    with span("wct.decode"):
+                        x = dec_lib.decode_nchw(dec_p, transformed, level, ring)
+                        if cfg.clip_between_levels:
+                            x = x.clamp(0.0, 1.0)
+                    state_kind = "img"
     # Reference clips once before save (stylize.py:~150).
     return to_nhwc(x.clamp(0.0, 1.0)[:, :, :h, :w]).float()
 

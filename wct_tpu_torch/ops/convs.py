@@ -24,6 +24,7 @@ import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
 from wct_tpu_torch.utils.device import cuda_ms
+from wct_tpu_torch.utils.profiling import span
 
 
 def to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -130,18 +131,21 @@ def _read_choices(path: Path) -> dict:
 def _choice(table: dict, section: str, key: tuple, decide):
     """``table[key]``: from this process, else from the choice file, else
     ``decide()``, which is then written to the file (unless another
-    process wrote that shape first: its choice is taken)."""
+    process wrote that shape first: its choice is taken). ``decide()``
+    runs in the span ``wct.conv_choice``."""
     if key in table:
         return table[key]
     if CHOICES_PATH is None:
-        table[key] = decide()
+        with span("wct.conv_choice"):
+            table[key] = decide()
         return table[key]
     card, shape = _card_key(key[-1]), _shape_key(key)
     found = _read_choices(CHOICES_PATH).get(card, {}).get(section, {})
     if shape in found:
         table[key] = found[shape]
         return table[key]
-    value = decide()
+    with span("wct.conv_choice"):
+        value = decide()
     CHOICES_PATH.parent.mkdir(parents=True, exist_ok=True)
     with open(CHOICES_PATH.with_name(CHOICES_PATH.name + ".lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
@@ -274,11 +278,16 @@ def conv2d_reflect_nchw(
     route (``_conv_train``), whose forward and backward run under their
     own choices; every other call keeps the forward-only choice of
     ``conv_by_shape``, so inference gives the bits it gave before.
+
+    Each conv entry of this module runs in the span ``wct.op.conv`` (the
+    pad, the casts, the conv and its bias); one that calls another
+    records one range (``utils.profiling.span``).
     """
-    kh, kw = w.shape[2], w.shape[3]
-    if kh != kw:
-        raise ValueError(f"square kernels only, got {kh}×{kw}")
-    return conv2d_valid_nchw(pad_reflect_nchw(x, (kh - 1) // 2), w, b)
+    with span("wct.op.conv"):
+        kh, kw = w.shape[2], w.shape[3]
+        if kh != kw:
+            raise ValueError(f"square kernels only, got {kh}×{kw}")
+        return conv2d_valid_nchw(pad_reflect_nchw(x, (kh - 1) // 2), w, b)
 
 
 def conv2d_valid_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -286,11 +295,12 @@ def conv2d_valid_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torc
     ``conv2d_reflect_nchw`` runs after its pad, on the same routes.
     ``parallel.mesh`` pads a height shard with its neighbours' rows and
     calls this."""
-    w, b = w.to(x.dtype), b.to(x.dtype)
-    if x.device.type == "cuda" and torch.is_grad_enabled() and (
-            x.requires_grad or w.requires_grad or b.requires_grad):
-        return _conv_train(x, w, b)
-    return _stock_conv(x, w, b)
+    with span("wct.op.conv"):
+        w, b = w.to(x.dtype), b.to(x.dtype)
+        if x.device.type == "cuda" and torch.is_grad_enabled() and (
+                x.requires_grad or w.requires_grad or b.requires_grad):
+            return _conv_train(x, w, b)
+        return _stock_conv(x, w, b)
 
 
 def _stock_conv(x, w, b=None, padding: int | tuple[int, int] = 0, groups: int = 1):
@@ -326,26 +336,27 @@ def conv2d_reflect_ring_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) 
     map with H or W below 2p has no room for the strips: both take
     ``conv2d_reflect_nchw``, as the reference does.
     """
-    k = w.shape[2]
-    if k != w.shape[3]:
-        raise ValueError(f"square kernels only, got {k}×{w.shape[3]}")
-    p = (k - 1) // 2
-    h, wd = x.shape[2], x.shape[3]
-    if p == 0 or h < 2 * p or wd < 2 * p:
-        return conv2d_reflect_nchw(x, w, b)
-    w, b = w.to(x.dtype), b.to(x.dtype)
-    out = _stock_conv(x, w, padding=p)
-    # Output rows [0, p) read input rows [-p, 2p): the first 2p rows,
-    # reflected upwards by p, reflect-padded sideways, VALID.
-    top = F.pad(F.pad(x[:, :, : 2 * p], (0, 0, p, 0), mode="reflect"), (p, p, 0, 0), mode="reflect")
-    bot = F.pad(F.pad(x[:, :, -2 * p :], (0, 0, 0, p), mode="reflect"), (p, p, 0, 0), mode="reflect")
-    left = F.pad(F.pad(x[..., : 2 * p], (p, 0, 0, 0), mode="reflect"), (0, 0, p, p), mode="reflect")
-    right = F.pad(F.pad(x[..., -2 * p :], (0, p, 0, 0), mode="reflect"), (0, 0, p, p), mode="reflect")
-    out[:, :, :p] = _stock_conv(top, w)
-    out[:, :, h - p :] = _stock_conv(bot, w)
-    out[..., :p] = _stock_conv(left, w)
-    out[..., wd - p :] = _stock_conv(right, w)
-    return out + b[:, None, None]
+    with span("wct.op.conv"):
+        k = w.shape[2]
+        if k != w.shape[3]:
+            raise ValueError(f"square kernels only, got {k}×{w.shape[3]}")
+        p = (k - 1) // 2
+        h, wd = x.shape[2], x.shape[3]
+        if p == 0 or h < 2 * p or wd < 2 * p:
+            return conv2d_reflect_nchw(x, w, b)
+        w, b = w.to(x.dtype), b.to(x.dtype)
+        out = _stock_conv(x, w, padding=p)
+        # Output rows [0, p) read input rows [-p, 2p): the first 2p rows,
+        # reflected upwards by p, reflect-padded sideways, VALID.
+        top = F.pad(F.pad(x[:, :, : 2 * p], (0, 0, p, 0), mode="reflect"), (p, p, 0, 0), mode="reflect")
+        bot = F.pad(F.pad(x[:, :, -2 * p :], (0, 0, 0, p), mode="reflect"), (p, p, 0, 0), mode="reflect")
+        left = F.pad(F.pad(x[..., : 2 * p], (p, 0, 0, 0), mode="reflect"), (0, 0, p, p), mode="reflect")
+        right = F.pad(F.pad(x[..., -2 * p :], (0, p, 0, 0), mode="reflect"), (0, 0, p, p), mode="reflect")
+        out[:, :, :p] = _stock_conv(top, w)
+        out[:, :, h - p :] = _stock_conv(bot, w)
+        out[..., :p] = _stock_conv(left, w)
+        out[..., wd - p :] = _stock_conv(right, w)
+        return out + b[:, None, None]
 
 
 def conv2d_ring_rows_nchw(
@@ -363,20 +374,21 @@ def conv2d_ring_rows_nchw(
     reflected outwards and padded sideways, and the two columns from the
     ring's side strips (which own the corners); the bias is added last.
     """
-    k = w.shape[2]
-    if k != 3 or w.shape[3] != 3:
-        raise ValueError(f"a band of rows takes a 3×3 conv, got {k}×{w.shape[3]}")
-    r, wd = xh.shape[2] - 2, xh.shape[3]
-    w, b = w.to(xh.dtype), b.to(xh.dtype)
-    out = _stock_conv(xh, w, padding=(0, 1))
-    sideways = lambda t: F.pad(t, (1, 1, 0, 0), mode="reflect")  # noqa: E731
-    if top_edge:
-        out[:, :, :1] = _stock_conv(sideways(xh[:, :, :3]), w)
-    if bottom_edge:
-        out[:, :, r - 1:] = _stock_conv(sideways(xh[:, :, -3:]), w)
-    out[..., :1] = _stock_conv(F.pad(xh[..., :2], (1, 0, 0, 0), mode="reflect"), w)
-    out[..., wd - 1:] = _stock_conv(F.pad(xh[..., -2:], (0, 1, 0, 0), mode="reflect"), w)
-    return out + b[:, None, None]
+    with span("wct.op.conv"):
+        k = w.shape[2]
+        if k != 3 or w.shape[3] != 3:
+            raise ValueError(f"a band of rows takes a 3×3 conv, got {k}×{w.shape[3]}")
+        r, wd = xh.shape[2] - 2, xh.shape[3]
+        w, b = w.to(xh.dtype), b.to(xh.dtype)
+        out = _stock_conv(xh, w, padding=(0, 1))
+        sideways = lambda t: F.pad(t, (1, 1, 0, 0), mode="reflect")  # noqa: E731
+        if top_edge:
+            out[:, :, :1] = _stock_conv(sideways(xh[:, :, :3]), w)
+        if bottom_edge:
+            out[:, :, r - 1:] = _stock_conv(sideways(xh[:, :, -3:]), w)
+        out[..., :1] = _stock_conv(F.pad(xh[..., :2], (1, 0, 0, 0), mode="reflect"), w)
+        out[..., wd - 1:] = _stock_conv(F.pad(xh[..., -2:], (0, 1, 0, 0), mode="reflect"), w)
+        return out + b[:, None, None]
 
 
 def conv2d_reflect_perimage_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -385,10 +397,11 @@ def conv2d_reflect_perimage_nchw(x: torch.Tensor, w: torch.Tensor, b: torch.Tens
     ``w [B, Co, Ci, k, k]``, ``b [B, Co]`` → ``[B, Co, H, W]``: the
     reflect pad, then ``conv2d_valid_perimage_nchw``.
     """
-    k = w.shape[3]
-    if k != w.shape[4]:
-        raise ValueError(f"square kernels only, got {k}×{w.shape[4]}")
-    return conv2d_valid_perimage_nchw(pad_reflect_nchw(x, (k - 1) // 2), w, b)
+    with span("wct.op.conv"):
+        k = w.shape[3]
+        if k != w.shape[4]:
+            raise ValueError(f"square kernels only, got {k}×{w.shape[4]}")
+        return conv2d_valid_perimage_nchw(pad_reflect_nchw(x, (k - 1) // 2), w, b)
 
 
 def conv2d_valid_perimage_nchw(xp: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -400,11 +413,12 @@ def conv2d_valid_perimage_nchw(xp: torch.Tensor, w: torch.Tensor, b: torch.Tenso
     is image g's. Weights and bias are cast to ``xp``'s dtype (the
     transform fold makes them in f32), the bias added after the conv.
     """
-    nb, ci = xp.shape[:2]
-    co, k = w.shape[1], w.shape[3]
-    w, b = w.to(xp.dtype), b.to(xp.dtype)
-    y = _stock_conv(xp.reshape(1, nb * ci, *xp.shape[2:]), w.reshape(nb * co, ci, k, k), groups=nb)
-    return y.reshape(nb, co, *y.shape[2:]) + b[:, :, None, None]
+    with span("wct.op.conv"):
+        nb, ci = xp.shape[:2]
+        co, k = w.shape[1], w.shape[3]
+        w, b = w.to(xp.dtype), b.to(xp.dtype)
+        y = _stock_conv(xp.reshape(1, nb * ci, *xp.shape[2:]), w.reshape(nb * co, ci, k, k), groups=nb)
+        return y.reshape(nb, co, *y.shape[2:]) + b[:, :, None, None]
 
 
 def oihw_from_hwio(w) -> torch.Tensor:

@@ -36,6 +36,7 @@ import ctypes
 import torch
 
 from wct_tpu_torch.ops import _build, reductions
+from wct_tpu_torch.utils.profiling import span
 
 # Columns of x per split of the sum over N: 1,024, or the multiple of 1,024
 # that keeps a tile to at most MAX_SPLITS partials (a 1280 x 720 frame's
@@ -97,14 +98,17 @@ centered_gram_cuda.launches = 0
 
 
 def centered_gram_cn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """``(Σ(x−μ)(x−μ)ᵀ [B, C, C], mean [B, C])`` of channel-major ``x [B, C, N]``."""
+    """``(Σ(x−μ)(x−μ)ᵀ [B, C, C], mean [B, C])`` of channel-major ``x [B, C, N]``,
+    in the span ``wct.op.gram``."""
     if x.device.type == "cuda":
-        return centered_gram_cuda(x)
+        with span("wct.op.gram"):
+            return centered_gram_cuda(x)
     if x.device.type != "cpu":
         raise ValueError(f"no centered_gram kernel for device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"centered_gram_cn needs x [B, C, N], got {tuple(x.shape)}")
-    return _centered_gram_plain(x)
+    with span("wct.op.gram"):
+        return _centered_gram_plain(x)
 
 
 def moments_cn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -120,16 +124,18 @@ def moments_cn(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     does not promise. The off-diagonal entries cost little beside it:
     ``chip_smoke.py`` times the route against the plain two-pass at
     relu1_1. A CPU tensor takes the plain two-pass
-    ``reductions.moments0``.
+    ``reductions.moments0``. Both run in the span ``wct.op.gram``.
     """
     if x.dim() != 3:
         raise ValueError(f"moments_cn needs x [B, C, N], got {tuple(x.shape)}")
     if x.device.type == "cuda":
-        gram, mean = centered_gram_cuda(x.contiguous())
-        return mean, gram.diagonal(dim1=-2, dim2=-1) / x.shape[-1]
+        with span("wct.op.gram"):
+            gram, mean = centered_gram_cuda(x.contiguous())
+            return mean, gram.diagonal(dim1=-2, dim2=-1) / x.shape[-1]
     if x.device.type != "cpu":
         raise ValueError(f"no centered_gram kernel for device {x.device}")
-    return reductions.moments0(x.mT)
+    with span("wct.op.gram"):
+        return reductions.moments0(x.mT)
 
 
 def centered_gram(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:

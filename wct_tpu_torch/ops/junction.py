@@ -59,6 +59,7 @@ from wct_tpu_torch.ops.convs import (
     to_nhwc,
     upsample_nearest2_nchw,
 )
+from wct_tpu_torch.utils.profiling import span
 
 # The kernels work on 16×16 tiles of the full-resolution image.
 TILE = 16
@@ -461,13 +462,17 @@ def kernel_plan(kernel: str, dtype: torch.dtype) -> tuple[int, int]:
 # ------------------------------------------------------------- wrappers
 
 
+_SPANS = {"encoder_head": "wct.op.head", "junction": "wct.op.junction",
+          "decoder_tail": "wct.op.tail"}
+
+
 def _route(name: str, x: torch.Tensor, kernel, plain, *args):
-    """The kernel for a CUDA tensor, the plain version for a CPU tensor."""
-    if x.device.type == "cuda":
-        return kernel(x, *args)
-    if x.device.type != "cpu":
+    """The kernel for a CUDA tensor, the plain version for a CPU tensor,
+    either in the operation's span (``_SPANS``)."""
+    if x.device.type not in ("cuda", "cpu"):
         raise ValueError(f"no {name} kernel for device {x.device}")
-    return plain(x, *args)
+    with span(_SPANS[name]):
+        return (kernel if x.device.type == "cuda" else plain)(x, *args)
 
 
 def encoder_head_nchw(x, enc_w0, enc_b0, enc_w11, enc_b11, enc_w12, enc_b12):

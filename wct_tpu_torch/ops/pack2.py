@@ -40,6 +40,7 @@ from wct_tpu_torch.ops.convs import (
     maxpool2_nchw,
     upsample_nearest2_nchw,
 )
+from wct_tpu_torch.utils.profiling import span
 
 
 def _blockdiag(w: torch.Tensor) -> torch.Tensor:
@@ -201,19 +202,21 @@ def tail_pack2(
     images' view of the packed map (one Gram launch, one matrix-root call
     for every image), and the affine is applied there, so the
     reference's ``[128, 128]`` block-diagonal transform and its zero
-    blocks are never formed: the same products, without the zeros.
+    blocks are never formed: the same products, without the zeros. The
+    statistics, the affine and its apply run in the span ``wct.transform``.
     """
     view = images_view(e1p)
-    if transform == "adain":
-        mu, var = gram.moments_cn(view)
-        scale, bias = adain_ops.adain_affine_from_moments(mu, var, adain_stats, alpha)
-        out = (view.float() * scale[..., None] + bias[..., None]).to(e1p.dtype)
-    else:
-        cov, mean = wct_ops._gram_cn(view)
-        blended, bias = wct_ops.wct_affine_from_cov(
-            cov, mean, stats, alpha, eps=eps, trunc=trunc, method=method,
-            soft_trunc=soft_trunc, ns_iters=ns_iters, rel_trunc=rel_trunc,
-        )
-        out = wct_ops.apply_affine_cn(view, blended, bias)
+    with span("wct.transform"):
+        if transform == "adain":
+            mu, var = gram.moments_cn(view)
+            scale, bias = adain_ops.adain_affine_from_moments(mu, var, adain_stats, alpha)
+            out = (view.float() * scale[..., None] + bias[..., None]).to(e1p.dtype)
+        else:
+            cov, mean = wct_ops._gram_cn(view)
+            blended, bias = wct_ops.wct_affine_from_cov(
+                cov, mean, stats, alpha, eps=eps, trunc=trunc, method=method,
+                soft_trunc=soft_trunc, ns_iters=ns_iters, rel_trunc=rel_trunc,
+            )
+            out = wct_ops.apply_affine_cn(view, blended, bias)
     rgb = _packed_conv(_conv(ring), out.reshape(e1p.shape), dec_w, dec_b)
     return unpack(rgb)

@@ -39,6 +39,7 @@ import torch
 
 from wct_tpu_torch.ops import gram, reductions, sqrtm
 from wct_tpu_torch.utils.device import scalar_on, values_on
+from wct_tpu_torch.utils.profiling import span
 
 # Reference ops.py:~70: eps=1e-8 on the Gram diagonal, eigenvalues
 # truncated at 1e-5.
@@ -148,7 +149,8 @@ def _sqrt_kernels(
     soft: bool = False, ns_iters: int | None = None,
     topk: int | None = None, rel: float | None = None,
 ) -> torch.Tensor:
-    """cov^{power} for power = ±1/2 on ``cov [B, C, C]`` by ``method``."""
+    """cov^{power} for power = ±1/2 on ``cov [B, C, C]`` by ``method``, in
+    the span ``wct.op.sqrt``."""
     if method == "auto":
         method = "eigh" if cov.shape[-1] <= _AUTO_EIGH_MAX_C else "newton_schulz"
     if method != "eigh":
@@ -166,14 +168,16 @@ def _sqrt_kernels(
                 "the relative threshold would be silently dropped"
             )
     if method == "eigh":
-        return _sym_pow(cov, power, trunc, soft=soft, topk=topk, rel=rel)
+        with span("wct.op.sqrt"):
+            return _sym_pow(cov, power, trunc, soft=soft, topk=topk, rel=rel)
     if method in ("newton_schulz", "newton_schulz_fast", "newton_schulz_pallas"):
-        sq, inv = sqrtm.newton_schulz_sqrtm(
-            cov,
-            num_iters=sqrtm.DEFAULT_ITERS if ns_iters is None else ns_iters,
-            use_kernel=method == "newton_schulz_pallas",
-            precision="high" if method == "newton_schulz_fast" else "highest",
-        )
+        with span("wct.op.sqrt"):
+            sq, inv = sqrtm.newton_schulz_sqrtm(
+                cov,
+                num_iters=sqrtm.DEFAULT_ITERS if ns_iters is None else ns_iters,
+                use_kernel=method == "newton_schulz_pallas",
+                precision="high" if method == "newton_schulz_fast" else "highest",
+            )
         return inv if power < 0 else sq
     raise ValueError(f"unknown WCT method: {method!r}")
 
@@ -306,26 +310,28 @@ def whiten_color_kernels_cn(
             f"trunc_topk requires the eigh path; method resolved to {method!r}"
         )
     if method == "eigh":
-        s, u = torch.linalg.eigh(cov)
-        if soft_trunc:
-            s_pos = s.clamp_min(0.0)
-            filt = s_pos * s_pos / (s_pos * s_pos + trunc * trunc)
-            inv_d = filt * s_pos.clamp_min(trunc * 1e-3) ** -0.5
-            sq_d = filt * s_pos**0.5
-        else:
-            keep = keep_mask(s, trunc, topk=trunc_topk, rel=rel_trunc)
-            safe = torch.where(keep, s, 1.0).abs()
-            inv_d = torch.where(keep, safe**-0.5, 0.0)
-            sq_d = torch.where(keep, safe**0.5, 0.0)
-        inv = (u * inv_d[..., None, :]) @ u.mT
-        sq = (u * sq_d[..., None, :]) @ u.mT
+        with span("wct.op.sqrt"):
+            s, u = torch.linalg.eigh(cov)
+            if soft_trunc:
+                s_pos = s.clamp_min(0.0)
+                filt = s_pos * s_pos / (s_pos * s_pos + trunc * trunc)
+                inv_d = filt * s_pos.clamp_min(trunc * 1e-3) ** -0.5
+                sq_d = filt * s_pos**0.5
+            else:
+                keep = keep_mask(s, trunc, topk=trunc_topk, rel=rel_trunc)
+                safe = torch.where(keep, s, 1.0).abs()
+                inv_d = torch.where(keep, safe**-0.5, 0.0)
+                sq_d = torch.where(keep, safe**0.5, 0.0)
+            inv = (u * inv_d[..., None, :]) @ u.mT
+            sq = (u * sq_d[..., None, :]) @ u.mT
         return inv, sq, mean
     if method not in ("newton_schulz", "newton_schulz_fast", "newton_schulz_pallas"):
         raise ValueError(f"unknown WCT method: {method!r}")
-    sq, inv = sqrtm.newton_schulz_sqrtm(
-        cov, use_kernel=method == "newton_schulz_pallas",
-        precision="high" if method == "newton_schulz_fast" else "highest",
-    )
+    with span("wct.op.sqrt"):
+        sq, inv = sqrtm.newton_schulz_sqrtm(
+            cov, use_kernel=method == "newton_schulz_pallas",
+            precision="high" if method == "newton_schulz_fast" else "highest",
+        )
     return inv, sq, mean
 
 

@@ -1,20 +1,29 @@
-"""Observability: synchronised stage timers and a device profiler trace.
+"""Observability: program spans, synchronised stage timers and a device
+profiler trace.
 
 Counterpart of ``wct_tpu/utils/profiling.py``. PyTorch returns from a
 CUDA call before the card has finished, so a host clock around it
 measures the enqueue; every timer here waits for the work first.
 
+- ``span`` — a named range of the program (``wct.stylize``,
+  ``wct.level.<relu>``, ``wct.encode``, ``wct.op.conv`` …; README's
+  table). With no profiler running it is one shared no-op context and
+  makes no torch call. Under ``torch.profiler`` it is a
+  ``record_function`` range, on the trace's clock beside the CUDA
+  activity it launches, and it adds its host time to an in-memory
+  summary per name (``span_totals``, ``reset_spans``): calls, total and
+  self host ns, self being the total less the time its child spans
+  cover.
 - ``device_sync`` — wait for the work that produced a result: on a CUDA
   tensor, an event recorded on the current stream and synchronised; on
   the CPU, nothing (the work is done when the call returns).
 - ``StageTimer`` — named wall-clock stages with a device sync at each
   boundary, for per-stage splits (host preparation / H2D / device /
   D2H).
-- ``timeit_min``, ``latency_seconds``, ``pipelined_fps`` — the
-  measurement protocols of the reference's experiment scripts.
 - ``trace`` — ``torch.profiler`` around a block, with CUDA activity on
-  the card, written as a Chrome trace; ``device_busy_share`` reads the
-  share of a trace's span in which the card ran a kernel or a copy.
+  the card, written as a Chrome trace with the spans' summary beside
+  it; ``device_busy_share`` reads the share of a trace's span in which
+  the card ran a kernel or a copy.
 - ``shard_times`` — each mesh entry's enqueue and stream time in the
   last data-parallel stylization (``parallel.stylize_sharded``).
 """
@@ -23,14 +32,83 @@ from __future__ import annotations
 
 import contextlib
 import json
+import threading
 import time
 from collections import defaultdict
 from pathlib import Path
 
-import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from wct_tpu_torch.utils.device import resolve_device
+
+# What ``span`` returns while no profiler runs: one shared, reusable
+# context, so a span costs a flag read and nothing else.
+_OFF = contextlib.nullcontext()
+# Per name: [calls, total host ns, self host ns], over profiled stretches.
+_TOTALS: dict[str, list[int]] = {}
+_TOTALS_LOCK = threading.Lock()
+# Per thread, one entry per open span: [its name, the ns its finished
+# children took].
+_OPEN = threading.local()
+
+
+def span(name: str):
+    """A context manager naming a range of the program.
+
+    With no profiler running (``torch.autograd.profiler``'s enabled flag
+    false) it returns a shared no-op context: no allocation, no torch
+    call. Under ``torch.profiler`` it enters
+    ``torch.profiler.record_function(name)``, so the range lands in the
+    trace with the kernels it launches, and adds the range's host time
+    to ``span_totals()``. A span opened directly inside one of the same
+    name records nothing, so an entry point that calls another of its
+    layer (``conv2d_reflect_nchw`` → ``conv2d_valid_nchw``) makes one
+    range. Use it in a ``with`` block, so that ranges nest properly on
+    each thread.
+    """
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    stack = getattr(_OPEN, "stack", None)
+    if stack is None:
+        stack = _OPEN.stack = []
+    if stack and stack[-1][0] == name:
+        return _OFF
+    return _recorded(name, stack)
+
+
+@contextlib.contextmanager
+def _recorded(name: str, stack: list):
+    with torch.profiler.record_function(name):
+        stack.append([name, 0])
+        t0 = time.perf_counter_ns()
+        try:
+            yield
+        finally:
+            total = time.perf_counter_ns() - t0
+            children = stack.pop()[1]
+            if stack:
+                stack[-1][1] += total
+            with _TOTALS_LOCK:
+                row = _TOTALS.setdefault(name, [0, 0, 0])
+                row[0] += 1
+                row[1] += total
+                row[2] += total - children
+
+
+def span_totals() -> dict[str, dict[str, int]]:
+    """The spans' summary since the last ``reset_spans``: per name,
+    ``{"calls", "total_ns", "self_ns"}`` of host time. Only stretches
+    run under a profiler are counted."""
+    with _TOTALS_LOCK:
+        return {name: {"calls": c, "total_ns": t, "self_ns": s}
+                for name, (c, t, s) in _TOTALS.items()}
+
+
+def reset_spans() -> None:
+    """Clear the spans' summary."""
+    with _TOTALS_LOCK:
+        _TOTALS.clear()
 
 
 def _leaves(out) -> list:
@@ -63,23 +141,6 @@ def device_sync(out=None) -> None:
             event.record(torch.cuda.current_stream(leaf.device))
             event.synchronize()
             return
-
-
-def timeit_min(fn, *args, iters: int = 10, repeats: int = 3) -> float:
-    """min-of-``repeats`` mean-of-``iters`` wall time of ``fn(*args)``, ms.
-
-    Warm up once, then time ``iters`` calls ending in one
-    ``device_sync``, and keep the best of ``repeats`` runs.
-    """
-    out = fn(*args)
-    device_sync(out)
-    best = float("inf")
-    for _ in range(repeats):
-        t0 = time.perf_counter()
-        outs = [fn(*args) for _ in range(iters)]
-        device_sync(outs[-1])
-        best = min(best, (time.perf_counter() - t0) / iters)
-    return best * 1e3
 
 
 class StageTimer:
@@ -131,44 +192,6 @@ class StageTimer:
         return "\n".join(lines)
 
 
-def sync_one_element(out) -> None:
-    """Read one element of the first tensor of ``out`` to the host.
-
-    A host read of a CUDA tensor waits for the stream that produced it,
-    and shows that the value is readable; CPU tensors are read as they
-    are.
-    """
-    leaves = [x for x in _leaves(out) if isinstance(x, torch.Tensor) and x.numel()]
-    if leaves:
-        _ = leaves[0].reshape(-1)[0].item()
-
-
-def latency_seconds(fn, arg, n: int = 5) -> float:
-    """Median per-call latency, each call synchronised."""
-    sync_one_element(fn(arg))
-    ts = []
-    for _ in range(n):
-        t0 = time.perf_counter()
-        sync_one_element(fn(arg))
-        ts.append(time.perf_counter() - t0)
-    return float(np.median(ts))
-
-
-def pipelined_fps(fn, inputs, n_rounds: int = 3) -> float:
-    """Frames/sec: enqueue all inputs, sync once on the last output."""
-    sync_one_element(fn(inputs[0]))
-    frames = sum(x.shape[0] for x in inputs)
-    rates = []
-    for _ in range(n_rounds):
-        t0 = time.perf_counter()
-        out = None
-        for x in inputs:
-            out = fn(x)
-        sync_one_element(out)
-        rates.append(frames / (time.perf_counter() - t0))
-    return float(np.median(rates))
-
-
 @contextlib.contextmanager
 def trace(log_dir: str, device: str | torch.device = "cuda"):
     """``torch.profiler`` around the block; yields the profiler, or None.
@@ -176,15 +199,17 @@ def trace(log_dir: str, device: str | torch.device = "cuda"):
     Records CPU activity, and CUDA activity when ``device`` is a CUDA
     device (asking for one without a card raises, as every entry point
     of the port does). On exit the trace is written to
-    ``log_dir/trace.json`` (Chrome's trace format, read by Perfetto).
-    As in the reference, a profiler that cannot start prints why and the
-    block runs untraced.
+    ``log_dir/trace.json`` (Chrome's trace format, read by Perfetto)
+    and the block's ``span_totals()`` to ``log_dir/spans.json`` (the
+    summary is reset when the block starts). As in the reference, a
+    profiler that cannot start prints why and the block runs untraced.
     """
     dev = resolve_device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if dev.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=activities)
+    reset_spans()
     try:
         prof.start()
     except RuntimeError as e:
@@ -199,6 +224,7 @@ def trace(log_dir: str, device: str | torch.device = "cuda"):
             prof.stop()
             Path(log_dir).mkdir(parents=True, exist_ok=True)
             prof.export_chrome_trace(str(Path(log_dir) / "trace.json"))
+            (Path(log_dir) / "spans.json").write_text(json.dumps(span_totals(), indent=1))
 
 
 # Chrome-trace categories of work on the card.

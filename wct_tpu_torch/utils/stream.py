@@ -36,6 +36,11 @@ from wct_tpu_torch.models import cascade
 from wct_tpu_torch.utils import colors as color_utils
 from wct_tpu_torch.utils import images as img_utils
 from wct_tpu_torch.utils.device import params_device
+from wct_tpu_torch.utils.profiling import span
+
+# Each stage's span, named once so that a span costs no string per call.
+_STAGE_SPANS = {name: f"wct.stream.{name}" for name in
+                ("resize", "host_prep", "h2d", "device", "d2h", "host_post")}
 
 
 def _require_cv2():
@@ -170,12 +175,14 @@ class StreamStylizer:
     oldest group first when every slot is in flight, so no host buffer
     is rewritten while a copy reads or writes it.
 
-    ``timer`` (None by default) takes a ``profiling.StageTimer``: each
-    dispatch then synchronises at every stage boundary and records
-    ``resize`` (strict mode), ``host_prep`` (staging into the pinned
-    buffer), ``h2d``, ``device``, ``d2h`` and ``host_post``. That
-    serialises the stages, so it is for measuring the strict path's
-    split, not for serving.
+    Each stage runs in a span ``wct.stream.<stage>`` (``resize`` in
+    strict mode, ``host_prep``: staging into the pinned buffer, ``h2d``,
+    ``device``, ``d2h`` and ``host_post``), which a profiler records
+    without synchronising anything. ``timer`` (None by default) takes a
+    ``profiling.StageTimer``: each dispatch then synchronises at every
+    stage boundary and records the same stages. That serialises the
+    stages, so it is for measuring the strict path's split, not for
+    serving.
     """
 
     def __init__(
@@ -231,9 +238,16 @@ class StreamStylizer:
         )
 
     def _stage(self, name: str, sync_on=None):
+        """The stage's span ``wct.stream.<name>``, with the ``timer``'s
+        synchronised stage inside it when one is set."""
         if self.timer is None:
-            return contextlib.nullcontext()
-        return self.timer.stage(name, sync_on=sync_on)
+            return span(_STAGE_SPANS[name])
+        return self._timed_stage(name, sync_on)
+
+    @contextlib.contextmanager
+    def _timed_stage(self, name: str, sync_on):
+        with span(_STAGE_SPANS[name]), self.timer.stage(name, sync_on=sync_on):
+            yield
 
     # -- style management (encode ONCE per style switch) --
     def set_style(self, style_img: np.ndarray) -> None:
