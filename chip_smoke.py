@@ -19,9 +19,11 @@ compose_conv0=True``, phase ``main_bf16``, which also sends the
 cascade's own relu1_1-tier tensors through the small-conv and
 centred-Gram entry points), in bf16 with ``fuse_junction=True``
 (``main_bf16_fused``: the bf16 forms of the junction kernels), and in
-the default ``CascadeConfig()`` (f32, ``eigh``, ``main_eigh``); ``main``
-also shows ``stylize_interp`` with new weights returning before the card
-is done. Then the
+the default ``CascadeConfig()`` (f32, ``eigh``, ``main_eigh``), whose
+eigh kernel (``csrc/eigh_jacobi.cu``) phase ``eigh_kernel`` holds to its
+twin, float64 and cuSOLVER's eigh and times; ``main`` also shows
+``stylize_interp`` with new weights returning before the card is done.
+Then the
 other transforms: AdaIN unfused in f32 (``main_adain``) and fused in bf16
 (``main_adain_fused``), style-swap at relu5_1 (``main_swap5``), grouped
 WCT with four groups (``main_groups``) and the relative truncation
@@ -109,6 +111,7 @@ from torch.utils._pytree import tree_leaves
 
 from wct_tpu_torch.models import cascade, decoder, vgg
 from wct_tpu_torch.ops import _build, conv_small, convs, gram, junction, pack2, reductions, sqrtm
+from wct_tpu_torch.ops import eigh as eigh_ops
 from wct_tpu_torch.ops import adain as adain_ops
 from wct_tpu_torch.ops import style_swap as swap_ops
 from wct_tpu_torch.ops import wct as wct_ops
@@ -1357,7 +1360,7 @@ def phase_main_eigh(params, content, style, cache_ns, cfg_ns):
             eye = torch.eye(cov.shape[-1], device=DEV)
             a = (cov + wct_ops.DEFAULT_EPS * eye).contiguous()
             wct = lambda: cascade._transform_level(feats, level, cache[level], ALPHA, cfg)  # noqa: E731
-            wct_ms, eigh_ms = cuda_ms(wct, runs), cuda_ms(lambda: torch.linalg.eigh(a), runs)
+            wct_ms, eigh_ms = cuda_ms(wct, runs), cuda_ms(lambda: eigh_ops.eigh_cn(a), runs)
             levels[level] = {"C": cov.shape[-1], "cov_vs_float64_rel_fro": rel_fro(cov.double(), cov64),
                              "wct_ms": wct_ms, "eigh_ms": eigh_ms, "eigh_share": eigh_ms / wct_ms}
             check(levels[level]["cov_vs_float64_rel_fro"] <= GRAM_F64_LIMIT,
@@ -1373,6 +1376,130 @@ def phase_main_eigh(params, content, style, cache_ns, cfg_ns):
           "ms_per_frame_b4_newton_schulz_pallas": (turns[0] + turns[3]) / 2,
           "ms_per_frame_b4_turns_ns_eigh_eigh_ns": turns,
           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30})
+
+
+# The eigh kernel against float64 eigh of the same f32 matrices: the WCT's
+# A^-1/2 (hard 1e-5 mask) no farther than twice cuSOLVER's f32 eigh on the
+# trained covariances (largest over the batch, per level); on seeded SPD
+# matrices no farther than twice its plain twin's; everywhere eigenvectors
+# orthonormal and eigenvalues within C 2^-23 of float64, relative to the
+# largest.
+EIGH_VS_LIBRARY = 2.0
+
+
+def eigh_errors(a, s, u) -> dict:
+    """Per matrix of ``a [B, C, C]``: ``‖UᵀU − I‖_F``, the eigenvalues'
+    largest error over the largest, and ``A^-1/2``'s relative Frobenius
+    distance, each from float64 ``eigh`` of the same matrix."""
+    a64 = a.double()
+    s64, u64 = torch.linalg.eigh(a64)
+    sd, ud = s.double(), u.double()
+
+    def minus_half(s_, u_):
+        keep = s_ > wct_ops.DEFAULT_TRUNC
+        return (u_ * torch.where(keep, s_.abs() ** -0.5, 0.0)[..., None, :]) @ u_.mT
+
+    ref = minus_half(s64, u64)
+    eye = torch.eye(a.shape[-1], dtype=torch.float64, device=a.device)
+    return {"orth": (ud.mT @ ud - eye).norm(dim=(1, 2)).tolist(),
+            "eigenvalues": ((sd - s64).abs().amax(-1) / s64.abs().amax(-1)).tolist(),
+            "minus_half": ((minus_half(sd, ud) - ref).flatten(1).norm(dim=1)
+                           / ref.flatten(1).norm(dim=1)).tolist()}
+
+
+def eigh_flops(c: int) -> float:
+    """FLOP a C x C symmetric eigendecomposition needs, whatever computes it:
+    about 9 C^3 (tridiagonal reduction, its eigenvectors, back-transform)."""
+    return 9.0 * c**3
+
+
+def eigh_algorithm_flops(c: int, sweeps: float) -> float:
+    """FLOP of one matrix's block-Jacobi decomposition (csrc/eigh_jacobi.cu's
+    count): about 128 np^2 a round, np / 16 - 1 rounds a sweep."""
+    np_ = eigh_ops.padded_edge(c)
+    return sweeps * (np_ // 16 - 1) * 128.0 * np_ * np_
+
+
+def seeded_spd(b: int, c: int, seed: int):
+    rng = np.random.default_rng(seed)
+    q, _ = np.linalg.qr(rng.standard_normal((b, c, c)))
+    eigs = np.geomspace(50.0, 50.0e-6, c)
+    return torch.from_numpy(((q * eigs) @ q.transpose(0, 2, 1)).astype(np.float32)).to(DEV)
+
+
+def phase_eigh_kernel(params, content, style, name) -> dict:
+    """The eigh kernel: on the trained covariances of a microbatch at every
+    level (kernel, its plain twin on the card and cuSOLVER's eigh against
+    float64; a matrix alone = in the batch, bitwise), on seeded SPD matrices
+    at every C the cascade and wct_groups give and B = 1, 2, 4, 8, and on one
+    f32 microbatch of the default route: 5 launches, no matrix at the sweep
+    cap, no synchronisation (``torch.cuda.set_sync_debug_mode("error")``)."""
+    cfg = cascade.CascadeConfig()
+    covs = level_covariances(params, content[:MICROBATCH], cfg)
+    eps = 2.0 ** -23
+    levels, ms, plain_ms, library_ms, err = {}, 0.0, 0.0, 0.0, 0.0
+    flops, nbytes, algorithm_flops = 0.0, 0.0, 0.0
+    for level, a in covs.items():
+        c = a.shape[-1]
+        s, u = eigh_ops.eigh_cuda(a)
+        s1, u1 = eigh_ops.eigh_cuda(a[:1].contiguous())
+        check(torch.equal(s1[0], s[0]) and torch.equal(u1[0], u[0]),
+              f"eigh {level}: a matrix alone differs from it in the batch")
+        st, ut, sweeps = eigh_ops._eigh_plain(a)
+        sl, ul = torch.linalg.eigh(a)
+        row = {"C": c, "twin_sweeps": sweeps.tolist(), "kernel": eigh_errors(a, s, u),
+               "twin": eigh_errors(a, st, ut), "library": eigh_errors(a, sl, ul),
+               "eigenvalues_vs_twin": float((s - st).abs().max() / st.abs().max())}
+        kmax, lmax = max(row["kernel"]["minus_half"]), max(row["library"]["minus_half"])
+        check(kmax <= EIGH_VS_LIBRARY * lmax, f"eigh {level}: A^-1/2 {kmax:.3e} vs cuSOLVER {lmax:.3e}")
+        check(max(row["kernel"]["orth"]) <= c * eps and max(row["kernel"]["eigenvalues"]) <= c * eps,
+              f"eigh {level}: {row['kernel']}")
+        row["ms"] = cuda_ms(lambda: eigh_ops.eigh_cuda(a))
+        row["plain_ms"] = cuda_ms(lambda: eigh_ops._eigh_plain(a), 1, 1)
+        row["library_ms"] = cuda_ms(lambda: torch.linalg.eigh(a), 2, 1)
+        ms, plain_ms, library_ms = ms + row["ms"], plain_ms + row["plain_ms"], library_ms + row["library_ms"]
+        flops += a.shape[0] * eigh_flops(c)
+        nbytes += a.shape[0] * (2 * c * c + c) * 4  # read A, write U and s
+        algorithm_flops += sum(eigh_algorithm_flops(c, float(n)) for n in sweeps.tolist())
+        err = max(err, row["eigenvalues_vs_twin"])
+        levels[level] = row
+    shapes = {}
+    for c in (4, 7, 8, 16, 32, 33, 64, 100, 128, 256, 512):
+        a = seeded_spd(8, c, c)
+        s, u = eigh_ops.eigh_cuda(a)
+        for b in (1, 2, 4):
+            sb, ub = eigh_ops.eigh_cuda(a[:b].contiguous())
+            check(torch.equal(sb, s[:b]) and torch.equal(ub, u[:b]), f"eigh C={c}: batch {b} differs")
+        st, ut, _ = eigh_ops._eigh_plain(a[:2])
+        k, t = eigh_errors(a, s, u), eigh_errors(a[:2], st, ut)
+        check(max(k["orth"]) <= max(c, 32) * eps and max(k["eigenvalues"]) <= max(c, 32) * eps,
+              f"eigh C={c}: {k}")
+        check(max(k["minus_half"][:2]) <= 2.0 * max(t["minus_half"]) + 1e-6,
+              f"eigh C={c}: A^-1/2 {k['minus_half'][:2]} vs twin {t['minus_half']}")
+        shapes[c] = {"kernel": k, "twin": t}
+    cache = cascade.precompute_style(params["encoder"], style, cfg)
+    batch = torch.as_tensor(content[:MICROBATCH], device=DEV)
+    cascade.stylize(params, batch, cache, ALPHA, cfg)
+    torch.cuda.synchronize()
+    before = eigh_ops.eigh_cuda.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cascade.stylize(params, batch, cache, ALPHA, cfg)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    launches = eigh_ops.eigh_cuda.launches - before
+    capped = eigh_ops.capped_sweeps()
+    check(launches == 5, f"an f32 microbatch launched the eigh kernel {launches} times")
+    check(capped == 0, f"{capped} matrices reached the sweep cap")
+    bound_ms, bound_by = conv_bound_ms(flops, nbytes, *peaks(name))
+    emit({"phase": "eigh_kernel", "levels_b4": levels, "seeded_spd_b8": shapes,
+          "launches_per_f32_microbatch": launches, "capped_sweeps": capped,
+          "no_sync_in_f32_microbatch": True, "ms_b4": ms, "plain_ms_b4": plain_ms,
+          "library_ms_b4": library_ms, "bound_ms_b4": bound_ms, "flops_b4": flops,
+          "algorithm_flops_b4": algorithm_flops,
+          "algorithm_ms_at_ffma_peak_b4": algorithm_flops / peaks(name)[0] * 1e3})
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": library_ms, "launches": launches}
 
 
 def route_checks(params, content, cache, cfg, out, label) -> None:
@@ -1685,10 +1812,10 @@ def phase_main_groups(params, content, style, name):
 
 def keep_masks(f, rel):
     """The rel_trunc keep mask of each image's covariance of ``f [B, C, N]``:
-    the cascade's (the Gram kernel, f32 eigh on the card) and float64's."""
+    the cascade's (the Gram kernel, the eigh kernel) and float64's."""
     cov, _ = wct_ops._gram_cn(f)
     eye = torch.eye(cov.shape[-1], device=DEV)
-    s32 = torch.linalg.eigvalsh(cov + wct_ops.DEFAULT_EPS * eye)
+    s32 = eigh_ops.eigh_cn((cov + wct_ops.DEFAULT_EPS * eye).contiguous())[0]
     f64 = f.double()
     c64 = f64 - f64.mean(-1, keepdim=True)
     s64 = torch.linalg.eigvalsh(c64 @ c64.mT / (f.shape[-1] - 1)
@@ -3091,8 +3218,25 @@ def phase_mesh_dp(params, style):
             rows[f"{mesh_name}/{route}"] = row
             del out, cache
         rows[f"{mesh_name}/f32_ns_pallas_pack2"] = mesh_dp_pack2(params, style, x, mesh)
+        rows[f"{mesh_name}/eigh_c512"] = mesh_eigh(mesh)
     emit({"phase": "mesh_dp", "card": card_name(), "batch": MESH_DP_BATCH, "size": MESH_DP_SIZE,
           "alpha": ALPHA, "shards": MESH_SHARDS, "runs": rows})
+
+
+def mesh_eigh(mesh) -> dict:
+    """The eigh kernel at C = 512 (a cluster of 16 blocks, a non-portable
+    size) on every card of ``mesh``, the first card first: each card's
+    result bitwise the first's, no matrix at the sweep cap."""
+    cards = list(dict.fromkeys(mesh.devices))
+    a = seeded_spd(MICROBATCH, 512, SEED + 31)
+    s0, u0 = eigh_ops.eigh_cuda(a.to(cards[0]))
+    for dev in cards[1:]:
+        s, u = eigh_ops.eigh_cuda(a.to(dev))
+        check(torch.equal(s.to(s0.device), s0) and torch.equal(u.to(u0.device), u0),
+              f"mesh eigh: {dev} differs from {cards[0]}")
+    capped = {str(d): eigh_ops.capped_sweeps(d) for d in cards}
+    check(not any(capped.values()), f"mesh eigh: matrices at the sweep cap {capped}")
+    return {"cards": [str(d) for d in cards], "bitwise_equal_first_card": True, "capped_sweeps": capped}
 
 
 def mesh_dp_pack2(params, style, x, mesh) -> dict:
@@ -3572,6 +3716,8 @@ def main() -> int:
         out_bf16, cache_bf16, cfg_bf16)
     counts.update({f"{k}_bf16": counts_bf16_fused[f"{k}_bf16"] for k in BY_DTYPE})
     phase_main_eigh(params, content, style, cache, cfg)
+    lines["eigh_jacobi"] = phase_eigh_kernel(params, content, style, name)
+    counts["eigh_jacobi"] = lines["eigh_jacobi"]["launches"]
     out_adain, cache_adain, cfg_adain = phase_main_adain(params, content, style)
     phase_main_adain_fused(params, content, style, out_adain, cache_adain, cfg_adain)
     phase_main_swap5(params, content, style, cache, cfg)
@@ -3615,11 +3761,13 @@ def main() -> int:
         "conv3x3_small": (small, "wct_tpu/ops/conv_pallas.py:144, scripts/exp_nchw_conv.py:158"),
         "conv3x3_small_nchw": (small, "scripts/exp_nchw_conv.py:74"),
         "centered_gram": ("wct_tpu_torch/csrc/centered_gram.cu", "wct_tpu/ops/gram_pallas.py:109"),
+        "eigh_jacobi": ("wct_tpu_torch/csrc/eigh_jacobi.cu", "none: XLA's eigh (wct_tpu/ops/wct.py)"),
     }
     # ms, plain_ms, bound_ms and library_ms are one microbatch's calls (5
     # ns_sqrtm, 1 head, 3 junctions, 1 tail in each operand type; the four
     # trained small convs at [4, ·, 512, 512] through each entry; the five
-    # levels' Grams). Launches are the fused main paths' runs (main_fused for
+    # levels' Grams; the five levels' eigh, its launches those of an f32
+    # microbatch of the default route). Launches are the fused main paths' runs (main_fused for
     # the f32 forms, main_bf16_fused for the bf16 ones) and, for the small
     # conv (NHWC entry, NCHW entry), main_bf16's entry-point calls.
     print(json.dumps({"kernels": [{

@@ -18,8 +18,10 @@ from wct_tpu_torch.utils.stream import StreamStylizer
 SIZE = 64
 LEVELS = {f"wct.level.{t}" for t in cascade.DEFAULT_TARGETS}
 STAGES = {"wct.encode", "wct.transform", "wct.decode"}
-F32 = STAGES | {"wct.op.conv", "wct.op.gram", "wct.op.sqrt"}
-FUSED = F32 | {"wct.junction", "wct.op.head", "wct.op.junction", "wct.op.tail"}
+OPS = {"wct.op.conv", "wct.op.gram", "wct.op.sqrt"}
+# The eigh routes' matrix powers open wct.op.eigh inside wct.op.sqrt.
+F32 = STAGES | OPS | {"wct.op.eigh"}
+FUSED = STAGES | OPS | {"wct.junction", "wct.op.head", "wct.op.junction", "wct.op.tail"}
 
 # Route → (CascadeConfig fields, the spans below wct.level.* it emits).
 ROUTES = {
@@ -125,6 +127,8 @@ def test_each_route_emits_its_spans_nested_under_its_levels(setup, route):
             assert not any(n.startswith("wct.") for n in chain)
         elif e.name in LEVELS:
             assert chain[0] == "wct.stylize", (e.name, chain)
+        elif e.name == "wct.op.eigh":
+            assert chain[0] == "wct.op.sqrt", chain
         else:
             assert "wct.stylize" in chain and LEVELS & set(chain), (e.name, chain)
     assert sum(e.name == "wct.stylize" for e in inside) == 1
@@ -146,6 +150,7 @@ def test_self_times_add_up(setup):
     parents = STAGES | {"wct.precompute_style"}
     assert sum(total[n] for n in parents) == sum(own[n] for n in parents) + sum(
         total[n] for n in ("wct.op.conv", "wct.op.gram", "wct.op.sqrt"))
+    assert total["wct.op.sqrt"] == own["wct.op.sqrt"] + total["wct.op.eigh"]
     assert all(0 <= row["self_ns"] <= row["total_ns"] for row in t.values())
 
 

@@ -37,7 +37,7 @@ from typing import Literal
 
 import torch
 
-from wct_tpu_torch.ops import gram, reductions, sqrtm
+from wct_tpu_torch.ops import eigh, gram, reductions, sqrtm
 from wct_tpu_torch.utils.device import scalar_on, values_on
 from wct_tpu_torch.utils.profiling import span
 
@@ -89,7 +89,7 @@ def _sym_pow(
     - ``soft``: the filter ``S⁺²/(S⁺² + trunc²)`` on ``S⁺ = max(S, 0)``
       (clamped to the PSD cone first), with the same floor.
     """
-    s, u = torch.linalg.eigh(cov)  # ascending eigenvalues
+    s, u = eigh.eigh_cn(cov)  # ascending eigenvalues
     if topk is not None:
         keep = keep_mask(s, trunc, topk=topk)
         s_pow = torch.where(keep, s.clamp_min(trunc * 1e-3) ** power, 0.0)
@@ -311,7 +311,7 @@ def whiten_color_kernels_cn(
         )
     if method == "eigh":
         with span("wct.op.sqrt"):
-            s, u = torch.linalg.eigh(cov)
+            s, u = eigh.eigh_cn(cov)
             if soft_trunc:
                 s_pos = s.clamp_min(0.0)
                 filt = s_pos * s_pos / (s_pos * s_pos + trunc * trunc)
