@@ -6,10 +6,9 @@ on a few, in one process, at the cell's own sizes.
 
 The control runs on the first ``--control-seeds`` of the seeds, those of
 ``--seed-list`` first. Prints one JSON line per seed (with each sampled
-image's mean |Δ|), then
-the largest program reading and the smallest control reading of each
-number. The benchmark's own runs do
-not run this.
+image's mean |Δ|), then the largest program reading and the smallest
+control reading of each number the readings hold (a variant's own
+included). The benchmark's own runs do not run this.
 """
 
 from __future__ import annotations
@@ -69,10 +68,11 @@ def main() -> int:
                      else precision, s=time.perf_counter() - t0)
             rows.setdefault(r["kind"], []).append(r)
             print(json.dumps(r), flush=True)
-    keys = ("style_rel", "style_recolour_rel", "image_mean_abs", "image_mean_abs_median",
-            "image_mean_abs_q80", "image_q99_abs")
-    summary = {k: {"program_max": max((r[k] for r in rows["program"]), default=None),
-                   "control_min": min((r[k] for r in rows["control"]), default=None)} for k in keys}
+    keys = {k for r in rows["program"] + rows["control"] for k, v in r.items()
+            if isinstance(v, float) and k not in ("run_s", "reference_s", "s")}
+    summary = {k: {"program_max": max((r[k] for r in rows["program"] if k in r), default=None),
+                   "control_min": min((r[k] for r in rows["control"] if k in r), default=None)}
+               for k in sorted(keys)}
     print(json.dumps({"workload": cell.name, "summary": summary}), flush=True)
     return 0
 

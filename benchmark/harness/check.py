@@ -1,13 +1,17 @@
 """How ``correct`` is decided: the program's outputs against the plain
-reference (``harness/reference.py``) in float64, on the same inputs.
+reference in float64, on the same inputs. The reference is the
+configuration's (``reference_for``): ``harness/reference.py``'s WCT
+cascade, or the variant its file names.
 
 The numbers (``readings``); a cell compares those its limits file
-(``limits/<cell>.json``) names, each against its limit:
+(``limits/<cell>.json``) names, each against its limit, and a name the
+readings do not hold is not correct:
 
-- ``style_rel``: over the levels, the largest relative Frobenius gap of
-  the program's cached colouring matrix and of its style mean from the
-  reference's;
-- ``style_recolour_rel``: over the levels, the largest relative gap
+- ``style_rel``: over the levels where both the program and the
+  reference keep a colouring, the largest relative Frobenius gap of the
+  program's cached colouring matrix and of its style mean from the
+  reference's (absent where they share none);
+- ``style_recolour_rel``: over the same levels, the largest relative gap
   between the style's own features and the program's colouring of their
   whitened form (``recolour_gap``);
 - ``image_mean_abs``: over the sampled outputs, the largest mean |Δ| in
@@ -17,7 +21,8 @@ The numbers (``readings``); a cell compares those its limits file
   80th percentile over the sampled outputs of the same (with every image
   of a pool checked, a fault in one slot of four in a microbatch spoils a
   quarter of them and moves the 80th percentile);
-- ``image_q99_abs``: the largest 99th percentile of |Δ|.
+- ``image_q99_abs``: the largest 99th percentile of |Δ|;
+- whatever numbers the variant adds (``Reference.extra_readings``).
 
 An output is judged against the reference of the input the benchmark
 sent for it, so an output handed back for another frame fails. Every
@@ -30,7 +35,10 @@ import numpy as np
 import torch
 
 from harness import reference as ref_lib
+from harness import spec
 from harness.spec import ROOT
+
+KERNEL, MEAN = "stats.kernel", "stats.mean"
 
 
 def quantise(img: torch.Tensor) -> torch.Tensor:
@@ -48,9 +56,30 @@ def image_gap(got_u8: np.ndarray, ref: torch.Tensor) -> tuple[float, float]:
     return float(d.mean()), float(q99)
 
 
+def reference_for(config: dict, device, precision: str = "float64",
+                  params: dict | None = None) -> ref_lib.Reference:
+    """The configuration's reference in ``precision`` on ``device``: the
+    class ``Reference`` of ``references/<name>.py`` where the file names
+    ``"reference": "<name>"``, else the plain WCT cascade."""
+    cls = ref_lib.Reference
+    if "reference" in config:
+        cls = spec.reference_module(config["reference"]).Reference
+        if not issubclass(cls, ref_lib.Reference):
+            raise TypeError(f"references/{config['reference']}.py: Reference does not "
+                            "subclass harness/reference.py's")
+    return cls(params or ref_lib.load_bundle(ROOT / config["weights"]), device, precision,
+               method=config["reference_method"], levels=config["relu_targets"], config=config)
+
+
+def colourings(stats: dict) -> dict:
+    """``{level: (colouring matrix, mean)}`` of the levels whose statistics
+    (``{level: {name: tensor}}``) hold a colouring."""
+    return {level: (s[KERNEL], s[MEAN]) for level, s in stats.items() if KERNEL in s}
+
+
 def style_gap(got: dict, want: dict) -> float:
     """The largest relative Frobenius gap of the cached colouring matrices
-    and means over the levels."""
+    and means over the levels of ``want``."""
     worst = 0.0
     for level, (k, mu) in want.items():
         gk, gmu = got[level]
@@ -77,15 +106,21 @@ def recolour_gap(got: dict, features: dict) -> float:
 def readings(config: dict, style_u8: np.ndarray, program_stats: dict,
              samples: list[tuple[int, np.ndarray]], pool, device, reference_params=None) -> dict:
     """Every number ``correct`` can compare, for the program's style
-    statistics and its sampled outputs (``(pool index, uint8 output)``,
-    ``pool[index]`` the input sent), against the float64 reference on
-    ``device``. A cell compares those its limits file names."""
-    params = reference_params or ref_lib.load_bundle(ROOT / config["weights"])
-    ref = ref_lib.Reference(params, device, "float64", method=config["reference_method"],
-                            levels=config["relu_targets"])
+    statistics (``program.style_statistics``) and its sampled outputs
+    (``(pool index, uint8 output)``, ``pool[index]`` the input sent),
+    against the configuration's reference in float64 on ``device``. A
+    cell compares those its limits file names."""
+    ref = reference_for(config, device, "float64", reference_params)
     stats = ref.style_stats(style_u8)
-    out = {"style_rel": style_gap(program_stats, stats),
-           "style_recolour_rel": recolour_gap(program_stats, ref.style_features(style_u8))}
+    want = {lv: {k: t.double().cpu() for k, t in ref.statistics(lv, s).items()}
+            for lv, s in stats.items()}
+    have = colourings(program_stats)
+    shared = {lv: kmu for lv, kmu in colourings(want).items() if lv in have}
+    out = {}
+    if shared:
+        out["style_rel"] = style_gap(have, shared)
+        out["style_recolour_rel"] = recolour_gap(have, ref.style_features(style_u8, list(shared)))
+    out.update(ref.extra_readings(program_stats, want))
     gaps = [image_gap(got, ref.stylize(pool[index], stats, float(config["alpha"])))
             for index, got in samples]
     means = [m for m, _ in gaps] or [float("nan")]
@@ -98,35 +133,37 @@ def readings(config: dict, style_u8: np.ndarray, program_stats: dict,
 
 
 def judge(values: dict, limits: dict, failed: int, n_samples: int) -> tuple[bool, dict]:
-    """``correct``, and each number compared beside its limit."""
-    checks = {k: {"value": values[k], "limit": limits[k]} for k in limits}
+    """``correct``, and each number compared beside its limit; a number
+    the limits name and ``values`` lacks reads None and is not correct."""
+    checks = {k: {"value": values.get(k), "limit": limits[k]} for k in limits}
     checks["failed"] = {"value": failed, "limit": 0}
     ok = n_samples > 0 and failed == 0 and all(
-        np.isfinite(c["value"]) and c["value"] <= c["limit"] for c in checks.values())
+        c["value"] is not None and np.isfinite(c["value"]) and c["value"] <= c["limit"]
+        for c in checks.values())
     return bool(ok), checks
 
 
 def control_readings(config: dict, traffic: dict, seed: int, device, precision: str | None = None,
                      reference_params=None) -> dict:
-    """The numbers compared when the reference computed in ``precision``
-    (by default the configuration's ``control_precision``, one step below
-    its own) takes the program's place, on the seed's style and on the
-    first ``check_images`` inputs the seed's traffic sends."""
+    """The numbers compared when the configuration's reference computed in
+    ``precision`` (by default the configuration's ``control_precision``,
+    one step below its own) takes the program's place, on the seed's style
+    and on the first ``check_images`` inputs the seed's traffic sends."""
     from harness import drivers, inputs
 
     params = reference_params or ref_lib.load_bundle(ROOT / config["weights"])
     h, w = int(traffic["height"]), int(traffic["width"])
-    style = inputs.images(1, drivers.STYLE_SIZE, drivers.STYLE_SIZE, seed, device)[0].cpu().numpy()
+    style = drivers.style_image(config, seed, device)
     pool = inputs.images(int(traffic["pool_images"]), h, w, seed + 1, device).cpu().numpy()
     order = drivers.pool_order(len(pool), seed)
-    low = ref_lib.Reference(params, device, precision or config["control_precision"],
-                            method=config["reference_method"], levels=config["relu_targets"])
+    low = reference_for(config, device, precision or config["control_precision"], params)
     stats = low.style_stats(style)
     samples = []
     for i in range(int(traffic["check_images"])):
         index = int(order[i % len(order)])
         out = low.stylize(pool[index], stats, float(config["alpha"]))
         samples.append((index, quantise(out).cpu().numpy()))
-    got = {lv: (k.double().cpu(), mu.double().cpu()) for lv, (k, mu) in stats.items()}
+    got = {lv: {k: t.double().cpu() for k, t in low.statistics(lv, s).items()}
+           for lv, s in stats.items()}
     del low
     return readings(config, style, got, samples, pool, device, params)

@@ -7,7 +7,8 @@ change that replaces a kernel or fuses two ops still gets a reading:
   2·9·Cin·Cout·H·W (the 1×1 preprocessing conv is left out);
 - each level's covariance and its C×C apply, 2·C²·N each;
 - the matrix square root or ``eigh`` is not counted (its work depends
-  on the method, not on the model).
+  on the method, not on the model); ``eigh_work`` is the least an
+  eigendecomposition needs, for its roofline.
 
 By this count a 512×512 frame is 0.829 TFLOP, a 1280×720 frame 2.92
 and a 2048×2048 image 13.27.
@@ -86,6 +87,14 @@ def junction_work(b: int, h: int, w: int, elt: int, deep: bool = True) -> tuple[
     ops = b * 2.0 * px * 9 * (64 * 64 + 64 * 3 + 3 * 64 + (64 * 64 if deep else 0))
     nbytes = b * 64.0 * (h * w + (h * w if deep else px)) * elt
     return ops, nbytes
+
+
+def eigh_work(b: int, c: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of the symmetric eigendecomposition of ``b`` matrices
+    ``[c, c]`` in f32: 9·C³ FLOPs a matrix (Golub and Van Loan's count of
+    the symmetric QR algorithm with eigenvectors), whatever method computes
+    it; the matrix read once, the eigenvalues and vectors written once."""
+    return 9.0 * b * c**3, float(b * (2 * c * c + c) * 4)
 
 
 def bound_seconds(flops: float, nbytes: float, rate: float, bandwidth: float) -> float:

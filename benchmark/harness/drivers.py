@@ -10,7 +10,9 @@ last one started has come back, so a rate is all the work over all the
 time. Set-up runs ``warmup_jobs`` jobs through the same loop.
 
 Every seed runs the same sizes and the same number of images; the seed
-draws the pixels and the order in which the pool is sent.
+draws the pixels and the order in which the pool is sent. The style is
+one seeded square image of the configuration's ``style_size`` pixels a
+side (512 where the file names none).
 """
 
 from __future__ import annotations
@@ -25,8 +27,6 @@ from torch.profiler import record_function
 
 from harness import inputs, program
 
-STYLE_SIZE = 512
-
 
 @dataclasses.dataclass
 class Window:
@@ -35,6 +35,13 @@ class Window:
     delivered: int
     enqueue_s: list[float]  # host time to enqueue each job
     samples: list[tuple[int, np.ndarray]]  # (pool index, uint8 output) kept for the check
+
+
+def style_image(config: dict, seed: int, device) -> np.ndarray:
+    """The seed's style image ``[S, S, 3]`` uint8 on the host, ``S`` the
+    configuration's ``style_size``."""
+    size = int(config.get("style_size", 512))
+    return inputs.images(1, size, size, seed, device)[0].cpu().numpy()
 
 
 def pool_order(n: int, seed: int) -> np.ndarray:
@@ -78,7 +85,7 @@ class Driver:
         self.alpha = float(config["alpha"])
         self.cfg = program.cascade_config(config)
         self.params = program.load_params(config, self.device)
-        self.style = inputs.images(1, STYLE_SIZE, STYLE_SIZE, self.seed, self.device)[0].cpu().numpy()
+        self.style = style_image(config, self.seed, self.device)
         pool = inputs.images(int(traffic["pool_images"]), self.h, self.w, self.seed + 1, self.device)
         self.pool = pool.cpu().pin_memory() if self.on_card else pool.cpu()
         self.order = pool_order(len(self.pool), self.seed)

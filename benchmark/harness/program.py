@@ -8,7 +8,10 @@ package.
 
 from __future__ import annotations
 
+import dataclasses
+import importlib
 import json
+from collections.abc import Mapping
 
 import numpy as np
 import torch
@@ -37,9 +40,21 @@ def precompute_style(params: dict, style_u8: np.ndarray, cfg) -> dict:
 
 
 def style_statistics(cache: dict) -> dict:
-    """The cached colouring matrix and mean of every level, as float64 on the host."""
-    return {level: (s.stats.kernel.double().cpu(), s.stats.mean.double().cpu())
-            for level, s in cache.items()}
+    """Per level every tensor the style cache holds, as float64 on the
+    host, by its path in the level's entry: ``stats.kernel`` and
+    ``stats.mean`` (the colouring, at the levels that have one),
+    ``adain.mean`` and ``adain.std``, ``fs_white``."""
+    def tensors(obj, prefix=""):
+        out = {}
+        for field in dataclasses.fields(obj):
+            value = getattr(obj, field.name)
+            if isinstance(value, torch.Tensor):
+                out[prefix + field.name] = value.double().cpu()
+            elif dataclasses.is_dataclass(value):
+                out.update(tensors(value, f"{prefix}{field.name}."))
+        return out
+
+    return {level: tensors(s) for level, s in cache.items()}
 
 
 def stylize_job(params: dict, images_f32: torch.Tensor, cache: dict, alpha: float, cfg,
@@ -48,14 +63,38 @@ def stylize_job(params: dict, images_f32: torch.Tensor, cache: dict, alpha: floa
     return cascade.stylize_microbatched(params, images_f32, cache, alpha, cfg, microbatch)
 
 
-def counters() -> dict:
+def counters(declared: dict | None = None) -> dict:
     """The program's launch counters of the kernels whose rooflines the
-    benchmark reads."""
-    return {
+    benchmark reads, and each counter of ``declared`` (``{key: path}``,
+    the metrics' ``COUNTERS``) by ``counter``."""
+    out = {
         "junction_f32": junction.junction_cuda.launches_by_dtype["f32"],
         "junction_bf16": junction.junction_cuda.launches_by_dtype["bf16"],
         "centered_gram": gram.centered_gram_cuda.launches,
     }
+    out.update({key: counter(path) for key, path in (declared or {}).items()})
+    return out
+
+
+def counter(path: str):
+    """The number at ``path`` under ``wct_tpu_torch``: the longest prefix
+    that is a module, then attributes or mapping keys
+    (``ops.eigh.eigh_cuda.launches``); None where the path does not
+    resolve to a number."""
+    parts = path.split(".")
+    for i in range(len(parts), 0, -1):
+        try:
+            obj = importlib.import_module("wct_tpu_torch." + ".".join(parts[:i]))
+        except ModuleNotFoundError:
+            continue
+        break
+    else:
+        return None
+    for part in parts[i:]:
+        obj = obj.get(part) if isinstance(obj, Mapping) else getattr(obj, part, None)
+        if obj is None:
+            return None
+    return obj if isinstance(obj, (int, float)) and not isinstance(obj, bool) else None
 
 
 def conv_choices(device_index: int = 0) -> dict:

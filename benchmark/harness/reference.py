@@ -117,12 +117,20 @@ def _round_fp8(x: torch.Tensor) -> torch.Tensor:
 class Reference:
     """The cascade in one ``precision``, on ``device``, from ``params``
     (``load_bundle``'s tree). ``method`` is the configuration's: ``eigh``
-    or a Newton–Schulz one; ``levels`` its relu targets in cascade order."""
+    or a Newton–Schulz one; ``levels`` its relu targets in cascade order;
+    ``config`` the configuration's file, for a variant's own parameters.
+
+    A configuration whose transform is not the plain WCT names a variant
+    (``"reference": "<name>"``): a subclass in ``references/<name>.py``
+    that overrides the per-level hooks ``style_state``, ``transform``,
+    ``statistics`` and, for numbers of its own, ``extra_readings``."""
 
     def __init__(self, params: dict, device, precision: str = "float64",
-                 method: str = "eigh", levels=("relu5_1", "relu4_1", "relu3_1", "relu2_1", "relu1_1")):
+                 method: str = "eigh", levels=("relu5_1", "relu4_1", "relu3_1", "relu2_1", "relu1_1"),
+                 config: dict | None = None):
         if precision not in PRECISIONS:
             raise ValueError(f"precision must be one of {PRECISIONS}, got {precision!r}")
+        self.config = config or {}
         self.precision = precision
         self.dtype = torch.float64 if precision == "float64" else torch.float32
         self.method = method
@@ -213,29 +221,53 @@ class Reference:
 
     @torch.no_grad()
     def style_stats(self, style_hwc) -> dict:
-        """Per level ``(colouring matrix [C, C], mean [C])`` of one style image."""
+        """Per level what the level's transform keeps of one style image
+        (``style_state``)."""
         with self._no_tf32():
             img = self._nchw(style_hwc)
-            out = {}
-            for level in self.levels:
-                f = self.encode(img, level)[0].flatten(1)
-                cov, mean = self.covariance(f.to(torch.float64) if self.dtype == torch.float64 else f)
-                out[level] = (self.powers(cov)[0], mean)
-            return out
+            return {level: self.style_state(level, self.encode(img, level)[0].flatten(1))
+                    for level in self.levels}
+
+    def style_state(self, level: str, f: torch.Tensor):
+        """What ``transform`` at ``level`` needs of the style's features
+        ``f [C, N]``: for the WCT ``(colouring matrix [C, C], mean [C])``."""
+        cov, mean = self.covariance(f.to(torch.float64) if self.dtype == torch.float64 else f)
+        return self.powers(cov)[0], mean
+
+    def statistics(self, level: str, state) -> dict:
+        """``state`` under the names the program's style cache gives the same
+        statistics (``harness/program.py::style_statistics``); a colouring
+        is ``stats.kernel`` and ``stats.mean``."""
+        k, mu = state
+        return {"stats.kernel": k, "stats.mean": mu}
+
+    def extra_readings(self, got: dict, want: dict) -> dict:
+        """Numbers of a variant's own for ``correct``, from the program's
+        style statistics ``got`` and this reference's ``want`` (``{level:
+        statistics}``, float64 on the host); a number the program's
+        statistics cannot give is left out, and a limit on it is then not
+        correct. The plain WCT adds none."""
+        return {}
 
     @torch.no_grad()
-    def style_features(self, style_hwc) -> dict:
-        """Per level the style's features ``[C, N]`` and their whitened form
-        (``cov_s^{−1/2}(f − μ_s)`` by the method), for judging a colouring
-        by what it does to the style's own features."""
+    def style_features(self, style_hwc, levels=None) -> dict:
+        """Per level (by default every one) the style's features ``[C, N]``
+        and their whitened form (``cov_s^{−1/2}(f − μ_s)`` by the method),
+        for judging a colouring by what it does to the style's own
+        features."""
         with self._no_tf32():
             img = self._nchw(style_hwc)
             out = {}
-            for level in self.levels:
+            for level in self.levels if levels is None else levels:
                 f = self.encode(img, level)[0].flatten(1)
                 cov, mean = self.covariance(f)
                 out[level] = (f, self.matmul(self.powers(cov)[1], f - mean[:, None]))
             return out
+
+    def transform(self, level: str, f: torch.Tensor, state, alpha: float) -> torch.Tensor:
+        """One image's features ``[C, H, W]`` at ``level`` through the
+        level's transform against the style's ``state``: the WCT."""
+        return self.wct(f, state, alpha)
 
     def wct(self, f: torch.Tensor, stats, alpha: float) -> torch.Tensor:
         """One image's features ``[C, H, W]`` through the WCT against ``stats``."""
@@ -260,7 +292,7 @@ class Reference:
                 x = F.pad(x, (0, pw, 0, ph), mode="reflect")
             for level in self.levels:
                 f = self.encode(x, level)
-                f = self.wct(f[0], stats[level], alpha)[None]
+                f = self.transform(level, f[0], stats[level], alpha)[None]
                 x = self.decode(f, level)
             return x[0, :, :h, :w].clamp(0.0, 1.0).permute(1, 2, 0).to(torch.float64)
 

@@ -11,7 +11,11 @@ sits in a file of its own, found by its name:
 - a cell's limits of ``correct``: ``benchmark/limits/<workload>.json``;
 - a per-layer metric: ``benchmark/metrics/<metric>.py``, a reader
   ``read(ctx) -> float | None``; ``<quantity>.<suffix>`` falls back to
-  ``<quantity>.py``.
+  ``<quantity>.py``. A reader may declare the program's counters it reads,
+  ``COUNTERS = {key: path under wct_tpu_torch}``;
+- a configuration's own reference, where its file names one
+  (``"reference": "<name>"``): ``benchmark/references/<name>.py``, a
+  subclass ``Reference`` of ``harness/reference.py``'s.
 
 An end-to-end metric ``<quantity>.<suffix>`` reports ``<quantity>``
 (``frames_per_s.f32`` is ``frames_per_s`` in the cells it lists), so one
@@ -28,6 +32,7 @@ from pathlib import Path
 
 BENCH_DIR = Path(__file__).resolve().parents[1]
 ROOT = BENCH_DIR.parent
+REFERENCES = BENCH_DIR / "references"
 NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.\-]{0,63}$")
 UNIT = re.compile(r"^[A-Za-z0-9_/%.\-]{1,16}$")
 
@@ -80,17 +85,46 @@ def cell_from(entry: dict, bench: dict) -> Cell:
     return Cell(name, config, traffic, limits, e2e, layer, int(entry["chips"]))
 
 
-def metric_reader(name: str, root: Path = ROOT):
-    """The ``read`` function of ``benchmark/metrics/<name>.py``; a metric
+def _module(path: Path, name: str):
+    spec = importlib.util.spec_from_file_location(name, path)
+    if spec is None or spec.loader is None or not path.is_file():
+        raise FileNotFoundError(path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def metric_module(name: str, root: Path = ROOT):
+    """The module ``benchmark/metrics/<name>.py``; a metric
     ``<quantity>.<suffix>`` with no file of its own (one quantity split
-    by the end-to-end metric it moves) is read by ``<quantity>.py``."""
+    by the end-to-end metric it moves) is ``<quantity>.py``."""
     stem = name
     while not (root / "benchmark" / "metrics" / f"{stem}.py").exists() and "." in stem:
         stem = stem.rpartition(".")[0]
     path = root / "benchmark" / "metrics" / f"{stem}.py"
-    spec = importlib.util.spec_from_file_location(f"bench_metric_{name.replace('.', '_')}", path)
-    if spec is None or spec.loader is None:
-        raise FileNotFoundError(path)
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return module.read
+    return _module(path, f"bench_metric_{name.replace('.', '_')}")
+
+
+def metric_reader(name: str, root: Path = ROOT):
+    """The ``read`` function of the metric's module (``metric_module``)."""
+    return metric_module(name, root).read
+
+
+def declared_counters(metrics: list[dict], root: Path = ROOT) -> dict:
+    """``{key: path}`` of every program counter that the readers of
+    ``metrics`` declare (their modules' ``COUNTERS``); raises where two
+    declare one key with different paths."""
+    out: dict = {}
+    for m in metrics:
+        for key, path in getattr(metric_module(m["name"], root), "COUNTERS", {}).items():
+            if out.setdefault(key, path) != path:
+                raise ValueError(f"counter {key!r} declared as {out[key]!r} and {path!r}")
+    return out
+
+
+def reference_module(name: str):
+    """The module ``references/<name>.py`` of a configuration that names
+    its own reference."""
+    if not NAME.match(name):
+        raise ValueError(f"not a reference name: {name!r}")
+    return _module(REFERENCES / f"{name}.py", f"bench_reference_{name.replace('.', '_')}")

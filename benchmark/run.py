@@ -87,7 +87,9 @@ def end_to_end(cell: spec.Cell, w, setup_s: float) -> dict:
 class Context:
     """What a per-layer metric's reader gets: the traced segment, the
     untraced window's host numbers, the program's counters over the traced
-    segment, the cell's files, the card's peaks and the cost model."""
+    segment (the fixed ones and those the cell's readers declare; one
+    whose path does not resolve is absent), the cell's files, the card's
+    peaks and the cost model."""
 
     def __init__(self, cell, window, trace, images_traced, counts, device_name):
         self.cell, self.config, self.traffic = cell, cell.config, cell.traffic
@@ -102,7 +104,8 @@ class Context:
 def traced_segment(cell, driver, device_name, window) -> tuple[dict, dict, dict]:
     from harness import program
 
-    before = program.counters()
+    declared = spec.declared_counters(cell.per_layer)
+    before = program.counters(declared)
     tmp = Path(tempfile.mkdtemp(prefix="wct_bench_trace_"))
     path = tmp / "trace.json"
     try:
@@ -120,8 +123,9 @@ def traced_segment(cell, driver, device_name, window) -> tuple[dict, dict, dict]
         if path.exists():
             path.unlink()
         tmp.rmdir()
-    after = program.counters()
-    counts = {k: after[k] - before[k] for k in after}
+    after = program.counters(declared)
+    counts = {k: after[k] - before[k] for k in after
+              if after[k] is not None and before[k] is not None}
     ctx = Context(cell, window, trace, images, counts, device_name)
     metrics = {}
     for m in cell.per_layer:

@@ -11,7 +11,7 @@ import pytest
 BENCH = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(BENCH), str(BENCH.parent)]
 
-from harness import spec  # noqa: E402
+from harness import reference, spec  # noqa: E402
 
 BENCHMARK = spec.load_benchmark()
 WORKLOADS = [w["name"] for w in BENCHMARK["workloads"]]
@@ -46,9 +46,14 @@ def test_workload_resolves_its_files(workload):
     cell = spec.load_cell(workload)
     assert cell.chips in (1, 4)
     assert cell.traffic["driver"] == "offline"
-    assert cell.limits and set(cell.limits) <= {"style_rel", "style_recolour_rel", "image_mean_abs",
-                                                 "image_mean_abs_median", "image_mean_abs_q80",
-                                                 "image_q99_abs"}
+    assert cell.limits
+    if "reference" in cell.config:  # a variant, which may add numbers of its own
+        variant = spec.reference_module(cell.config["reference"]).Reference
+        assert issubclass(variant, reference.Reference)
+    else:
+        assert set(cell.limits) <= {"style_rel", "style_recolour_rel", "image_mean_abs",
+                                    "image_mean_abs_median", "image_mean_abs_q80", "image_q99_abs"}
+    assert int(cell.config.get("style_size", 512)) >= 16
     assert {m["name"] for m in cell.end_to_end} >= {"setup_s"}
     assert len(cell.end_to_end) >= 2 and len(cell.per_layer) >= 1
     for m in cell.per_layer:

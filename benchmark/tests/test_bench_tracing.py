@@ -87,9 +87,10 @@ def test_union_length():
 
 def test_metric_readers_on_the_synthetic_trace():
     class Ctx:
-        trace = tracing.read_events(EVENTS)
+        # eigh's launch (at 131) inside the program's span as well
+        trace = tracing.read_events(EVENTS + [host("wct.op.eigh", 129, 22, cat="user_annotation")])
 
     share = spec.metric_reader("device.idle_share")(Ctx)
     assert share == pytest.approx(50.0)
     assert spec.metric_reader("convs.device_share")(Ctx) == pytest.approx(40.0)
-    assert spec.metric_reader("transform.eigh_share")(Ctx) == pytest.approx(30.0)
+    assert spec.metric_reader("transform.eigh_span_share.f32")(Ctx) == pytest.approx(30.0)
